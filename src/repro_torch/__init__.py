@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the SpTRSV medium-granularity dataflow system.
+
+A second package beside the JAX reference ``repro``: the same compiler
+and `Program` format (copied, numpy only), a torch executor, and the two
+VLIW-stream kernels written by hand in CUDA C++ for Hopper (`sm_90a`).
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.  Nothing here imports jax or ``repro``.
+
+    from repro_torch.core import api
+    prog = api.compile(api.matrix("band_cz"))
+    X = api.solve_batch(prog, B, backend="cuda")   # hand-written kernels
+"""
+
+from . import core, kernels  # noqa: F401
