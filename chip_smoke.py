@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a with nvcc,
-into build/).  It drives the port's main path, matrix -> compile ->
+into build/, one nvcc per source, all started together).  It drives the
+port's two paths.  First the SpTRSV solve, matrix -> compile ->
 make_solver(backend="cuda") -> the hand-written kernels, on the suite's
 largest matrices with 16 right-hand sides:
 
@@ -22,7 +23,28 @@ largest matrices with 16 right-hand sides:
      yardstick the port never calls), and the bound of the card for the
      same bytes and flops.
 
-Launch counters are set to 0 right before each main-path solve and read
+Then Zamba2-2.7B serving at full width (54 Mamba2 layers, d_model 2560,
+vocab 32,000, bf16, seeded random weights), through launch/serve.py:
+8 requests x 1000 prompt tokens, then 32 greedy decode steps:
+
+  6. the same prefill on the kernels and on the plain path
+     (use_kernels=False): in bf16 the last position's logits may differ by
+     no more than twice the rounding floor (the plain path against itself
+     with attention summed in the twin's order), and in f32 (the same
+     seed's weights unrounded) by 1e-4 relative L2 at most; the first scan
+     and attention launch's inputs are kept for step 8;
+  7. serving: the launch counts of prefill (54 scan, 9 attention) and of
+     decode (none), tokens inside the vocabulary, finite logits, and the
+     server's prefill and decode tokens/s over SERVE_RUNS runs (the first
+     is the counted one);
+  8. each kernel against its plain twin on the first layer's real inputs
+     (scan f32: 2e-4 of max|plain|; attention bf16: 2e-2 of max|plain|),
+     its time (CUDA events), its plain twin's (one run), the bound of the
+     card for the same bytes and flops, and for attention PyTorch's
+     scaled_dot_product_attention on the same tensors (a yardstick the
+     port never calls).
+
+Launch counters are set to 0 right before each main-path run and read
 right after it.  It prints one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}; any failed check raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
@@ -42,12 +64,25 @@ B = 16
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 RTOL = 1e-5
 REPLACES = {
     "sptrsv_cuda": "src/repro/kernels/sptrsv/kernel.py:200",
     "sptrsv_cuda_blocked": "src/repro/kernels/sptrsv/kernel.py:410",
+    "chunked_scan_cuda": "src/repro/kernels/ssd_scan/kernel.py:96",
+    "flash_attention_cuda": "src/repro/kernels/flash_attention/kernel.py:100",
 }
 SOURCE = "src/repro_torch/kernels/sptrsv/csrc/sptrsv.cu"
+SOURCES = {
+    "sptrsv": SOURCE,
+    "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+}
+SERVE_ARGV = ["--arch", "zamba2-2.7b", "--requests", "8", "--prefill-len", "1000",
+              "--decode-steps", "32"]
+SCAN_REL, ATTN_REL = 2e-4, 2e-2
+PATH_REL_L2_F32 = 1e-4       # ~12x the 8.4e-6 read on the H100 (PERF.md)
+SERVE_RUNS = 3
 
 
 def _close(got, ref, what):
@@ -84,7 +119,10 @@ def main() -> int:
 
     from repro_torch.core import api
     from repro_torch.core.executor import _psum_slots, execute_numpy
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
     from repro_torch.kernels.sptrsv import kernel, ops
+    from repro_torch.kernels.ssd_scan import kernel as scan_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -93,9 +131,12 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     t0 = time.perf_counter()
-    kernel.build()
+    common.build_libraries({n: os.path.join(ROOT, p) for n, p in SOURCES.items()})
+    for family in (kernel, scan_kernel, attn_kernel):
+        family.build()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
-    print(kernel.build.log.strip())
+    for name in SOURCES:
+        print(f"[{name}] {common.BUILD_LOGS.get(name, 'reused').strip()}")
 
     wrappers = {"sptrsv_cuda": kernel.sptrsv_cuda,
                 "sptrsv_cuda_blocked": kernel.sptrsv_cuda_blocked}
@@ -193,11 +234,205 @@ def main() -> int:
               f"emitted cycle), plain {plain_ms:.1f} ms, library {library_ms:.4f} ms, "
               f"bound {max(t_bytes, t_ops):.6f} ms", flush=True)
 
+    entries += serve_phase()
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _tap(calls, fn):
+    """``fn`` that also keeps a copy of its first call's arguments."""
+    def tapped(*args, **kw):
+        if not calls:
+            calls.append(([a.clone() for a in args], dict(kw)))
+        return fn(*args, **kw)
+    return tapped
+
+
+def serve_phase():
+    """Zamba2-2.7B served at full width on the kernels (steps 6-8)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.ssd_scan import kernel as scan_kernel
+    from repro_torch.kernels.ssd_scan import ops as scan_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    t0 = time.perf_counter()
+    srv = serve.setup(serve.parse_args(SERVE_ARGV))
+    torch.cuda.synchronize()
+    cfg = srv.cfg
+    n_params = sum(p.numel() for p in srv.model.parameters())
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}, {n_params / 1e9:.3f} B parameters, set up in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # -- 6. kernel path vs plain path; keeps the first launches' inputs ------
+    scan_calls, attn_calls = [], []
+    scan_ops.chunked_scan_cuda = _tap(scan_calls, scan_kernel.chunked_scan_cuda)
+    attn_ops.flash_attention_cuda = _tap(attn_calls, attn_kernel.flash_attention_cuda)
+    try:
+        logits_k, cache = prefill(srv.model, srv.tokens, cfg, srv.flags, pad_to=srv.max_seq)
+    finally:
+        scan_ops.chunked_scan_cuda = scan_kernel.chunked_scan_cuda
+        attn_ops.flash_attention_cuda = attn_kernel.flash_attention_cuda
+    assert logits_k.shape == (8, 1, cfg.vocab) and torch.isfinite(logits_k).all()
+    tok = logits_k[:, -1].argmax(-1, keepdim=True)
+    for _ in range(2):
+        logits_d, cache = decode_step(srv.model, tok, cache, cfg, srv.flags)
+        assert torch.isfinite(logits_d).all(), "decode logits"
+        tok = logits_d[:, -1].argmax(-1, keepdim=True)
+    del cache
+    plain_flags = dataclasses.replace(srv.flags, use_kernels=False)
+    logits_p, _ = prefill(srv.model, srv.tokens, cfg, plain_flags, pad_to=srv.max_seq)
+    path_err = _rel_l2(logits_k[:, -1], logits_p[:, -1])
+    # the bf16 rounding floor of this 63-block stack: the plain path again,
+    # with attention summed in another exact order (the kernel's twin)
+    exact = attn_ops.attention_ref
+    attn_ops.attention_ref = attn_kernel.flash_attention_plain
+    try:
+        logits_f, _ = prefill(srv.model, srv.tokens, cfg, plain_flags, pad_to=srv.max_seq)
+    finally:
+        attn_ops.attention_ref = exact
+    floor = _rel_l2(logits_f[:, -1], logits_p[:, -1])
+    print(f"bf16 prefill, relative L2 of the last position's logits: kernels vs "
+          f"plain path {path_err:.3e}; plain path with the attention twin vs plain "
+          f"path (rounding floor) {floor:.3e}", flush=True)
+    assert path_err <= 2 * floor, (path_err, floor)
+    del logits_p, logits_f
+    # the same check in f32 at full width, where rounding does not mask a fault
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = init_params(torch.Generator(device="cuda").manual_seed(serve.SEED), cfg32,
+                          device="cuda")
+    l32k, _ = prefill(model32, srv.tokens, cfg32, srv.flags)
+    l32p, _ = prefill(model32, srv.tokens, cfg32, plain_flags)
+    path_err32 = _rel_l2(l32k[:, -1], l32p[:, -1])
+    print(f"f32 prefill: relative L2 of the last position's logits, kernels vs "
+          f"plain path {path_err32:.3e} (limit {PATH_REL_L2_F32})", flush=True)
+    assert path_err32 <= PATH_REL_L2_F32, path_err32
+    del model32, l32k, l32p
+    torch.cuda.empty_cache()
+
+    # -- 7. the main path: serve.run ------------------------------------------
+    wrappers = {"chunked_scan_cuda": scan_kernel.chunked_scan_cuda,
+                "flash_attention_cuda": attn_kernel.flash_attention_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    result = serve.run(srv)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"serve: {result}", flush=True)
+    assert result["launches"]["prefill"] == {"chunked_scan_cuda": 54,
+                                             "flash_attention_cuda": 9}, result
+    assert result["launches"]["decode"] == {"chunked_scan_cuda": 0,
+                                            "flash_attention_cuda": 0}, result
+    assert launches == {"chunked_scan_cuda": 54, "flash_attention_cuda": 9}, launches
+    assert all(0 <= t < cfg.vocab for t in result["sample_output"])
+    # more runs for the spread of the server's rates; launches are not counted
+    runs = [result] + [serve.run(srv) for _ in range(SERVE_RUNS - 1)]
+    rates = {key: [r[key] for r in runs]
+             for key in ("prefill_tokens_per_s", "decode_tokens_per_s")}
+
+    # -- 8. each kernel vs its plain twin on the first layer's inputs; times --
+    entries = []
+    (q, k, v, w, s0), kw = scan_calls[0]
+    y, sf = scan_kernel.chunked_scan_cuda(q, k, v, w, s0, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yp, sfp = scan_kernel.chunked_scan_plain(q, k, v, w, s0, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max((y - yp).abs().max().item(), (sf - sfp).abs().max().item())
+    scale = max(yp.abs().max().item(), sfp.abs().max().item())
+    assert err <= SCAN_REL * scale, (err, scale)
+    ms = _event_ms(lambda: scan_kernel.chunked_scan_cuda(q, k, v, w, s0, **kw), 10)
+    bh, seq, kdim = q.shape
+    vdim = v.shape[2]
+    # the work this input needs: per 64-row tile only the causal pairs of the
+    # scores (K) and of A.v (V), and per real row the two K x V state products
+    t = scan_kernel.TILE
+    rows = [min(t, seq - t0) for t0 in range(0, seq, t)]
+    pairs = sum(r * (r + 1) // 2 if kw["inclusive"] else r * (r - 1) // 2 for r in rows)
+    nbytes = 4 * (3 * bh * seq * kdim + 2 * bh * seq * vdim + 2 * bh * kdim * vdim)
+    flops = bh * (2 * pairs * (kdim + vdim) + 4 * seq * kdim * vdim)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    entries.append({
+        "name": "chunked_scan_cuda", "route": "cuda", "source": SOURCES["ssd_scan"],
+        "replaces": REPLACES["chunked_scan_cuda"], "launches": launches["chunked_scan_cuda"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "shape": [bh, seq, kdim, vdim], "flops": flops,
+        "peak": "67 TFLOP/s f32 (inputs f32), 3.35 TB/s",
+    })
+    print(f"chunked_scan_cuda [BH={bh}, L={seq}, K={kdim}, V={vdim}]: "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, {flops / 1e9:.3f} GFLOP, bound "
+          f"{max(t_bytes, t_ops):.4f} ms, max abs err vs plain {err:.3e} "
+          f"(max |plain| {scale:.3e})", flush=True)
+
+    (qf, kf, vf), kw = attn_calls[0]
+    o = attn_kernel.flash_attention_cuda(qf, kf, vf, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op = attn_kernel.flash_attention_plain(qf, kf, vf, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (o.float() - op.float()).abs().max().item()
+    scale = op.float().abs().max().item()
+    assert err <= ATTN_REL * scale, (err, scale)
+    ms = _event_ms(lambda: attn_kernel.flash_attention_cuda(qf, kf, vf, **kw), 10)
+    bh, lq, d = qf.shape
+    heads = cfg.n_heads
+    q4, k4, v4 = (a.reshape(bh // heads, heads, -1, d) for a in (qf, kf, vf))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=kw["causal"], scale=kw["scale"])
+    lib_err = (sdpa().reshape(bh, lq, d).float() - op.float()).abs().max().item()
+    assert lib_err <= ATTN_REL * scale, lib_err
+    sdpa()
+    library_ms = _event_ms(sdpa, 10)
+    lk = kf.shape[1]
+    pairs = lq * (lq + 1) // 2 if kw["causal"] else lq * lk
+    nbytes = qf.element_size() * bh * d * (2 * lq + 2 * lk)
+    flops = 4 * bh * d * pairs
+    bf16 = qf.dtype == torch.bfloat16
+    peak = BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    entries.append({
+        "name": "flash_attention_cuda", "route": "cuda", "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention_cuda"],
+        "launches": launches["flash_attention_cuda"], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "shape": [bh, lq, lk, d], "causal": kw["causal"],
+        "peak": ("989 TFLOP/s bf16" if bf16 else "67 TFLOP/s f32") + " (the inputs' "
+                "type), 3.35 TB/s",
+        "bound_ms_f32_products": max(t_bytes, flops / FP32_FLOPS_PER_S * 1e3),
+    })
+    print(f"flash_attention_cuda [BH={bh}, Lq={lq}, Lk={lk}, D={d}], {qf.dtype}: "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, scaled_dot_product_attention "
+          f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms, max abs err vs "
+          f"plain {err:.3e} (max |plain| {scale:.3e}; library vs plain {lib_err:.3e})",
+          flush=True)
+    print(f"serve, {SERVE_RUNS} runs: prefill tokens/s {rates['prefill_tokens_per_s']}, "
+          f"decode tokens/s {rates['decode_tokens_per_s']}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for e in entries:
+        e.update(prefill_tokens_per_s=result["prefill_tokens_per_s"],
+                 decode_tokens_per_s=result["decode_tokens_per_s"],
+                 prefill_tokens_per_s_runs=rates["prefill_tokens_per_s"],
+                 decode_tokens_per_s_runs=rates["decode_tokens_per_s"],
+                 path_rel_l2_bf16=path_err, path_rel_l2_floor_bf16=floor,
+                 path_rel_l2_f32=path_err32)
+    return entries
 
 
 if __name__ == "__main__":

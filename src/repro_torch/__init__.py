@@ -2,13 +2,17 @@
 
 A second package beside the JAX reference ``repro``: the same compiler
 and `Program` format (copied, numpy only), a torch executor, and the two
-VLIW-stream kernels written by hand in CUDA C++ for Hopper (`sm_90a`).
+VLIW-stream kernels written by hand in CUDA C++ for Hopper (`sm_90a`); and
+the sequence-model serving path of the ``hybrid`` family (Zamba2: `models`,
+`launch.serve`) on hand-written chunked-scan and attention kernels.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.  Nothing here imports jax or ``repro``.
 
     from repro_torch.core import api
     prog = api.compile(api.matrix("band_cz"))
     X = api.solve_batch(prog, B, backend="cuda")   # hand-written kernels
+
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --prefill-len 1000
 """
 
 from . import core, kernels  # noqa: F401

@@ -1,0 +1,21 @@
+"""Granite-3.0-1B-A400M [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]."""
+
+from .base import ModelConfig, register
+
+
+@register("granite-moe-1b-a400m")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="granite-moe-1b-a400m",
+        family="moe",
+        n_layers=24,
+        d_model=1024,
+        n_heads=16,
+        n_kv_heads=8,
+        head_dim=64,
+        d_ff=512,
+        vocab=49155,
+        mlp="swiglu",
+        moe_experts=32,
+        moe_topk=8,
+    )

@@ -23,17 +23,13 @@ so kernel and twin round identically.
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its kernel
 launches in ``<wrapper>.launches``.  The CUDA library is built on first use
-(`build`) with ``nvcc`` into ``build/`` at the repository root and loaded
-with ctypes.
+(`build`, through `common.build_library`) with ``nvcc`` into ``build/`` at
+the repository root and loaded with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
@@ -47,6 +43,7 @@ from repro_torch.core.program import (
     PS_SWAP,
     decode_instructions,
 )
+from repro_torch.kernels.common import build_library
 
 __all__ = [
     "build",
@@ -59,9 +56,6 @@ __all__ = [
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sptrsv.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_THREADS_PER_CTA = 256  # P * cols_per_cta; csrc/sptrsv.cu MAX_THREADS
 PREFETCH_CYCLES = 16       # csrc/sptrsv.cu GROUP
 MAX_SLOTS = 256            # the packed word's 8-bit slot field
@@ -70,38 +64,13 @@ _LIB: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the SpTRSV kernels")
-    return nvcc
-
-
 def build() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernels' library.
-
-    The library is named by a hash of the source, so an edited source is
-    rebuilt and an unchanged one is reused.  ``build.log`` holds the
-    compiler's output of the last build (``-Xptxas -v``: registers, shared
-    memory and spills per kernel).
-    """
+    """Build (once per source version, `common.build_library`) and load the
+    kernels' library; `common.BUILD_LOGS` keeps the compiler's output."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libsptrsv-{tag}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        build.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{build.log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = ctypes.CDLL(str(build_library("sptrsv", SOURCE)))
     lib.sptrsv_error_string.argtypes = [_I]
     lib.sptrsv_error_string.restype = ctypes.c_char_p
     lib.sptrsv_resident.argtypes = [_P] * 4 + [_I] * 8 + [_P]
@@ -110,9 +79,6 @@ def build() -> ctypes.CDLL:
     lib.sptrsv_blocked.restype = _I
     _LIB = lib
     return lib
-
-
-build.log = ""
 
 
 # ---------------------------------------------------------------------------

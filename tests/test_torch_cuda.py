@@ -6,19 +6,32 @@ that has a CUDA card and no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch twin on the same CUDA
-tensors (rtol 1e-5, atol 1e-5, as tests/test_blocked.py), and the slice
-end to end against the serial forward substitution.
+tensors: the SpTRSV kernels at rtol 1e-5, atol 1e-5 (as
+tests/test_blocked.py), and the slice end to end against the serial
+forward substitution; the scan at 2e-4 of the plain result's largest value
+(f32, sums in another order); attention at 2e-5 in f32 and 2e-2 of the
+largest value in bf16 (both round the same f32 sums to bf16); the reduced
+Zamba2 prefill on the kernels against the plain path at 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch.configs import get_config
 from repro_torch.core import api
 from repro_torch.core.csr import serial_solve
 from repro_torch.core.executor import _psum_slots
 from repro_torch.core.schedule import compile_program
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_cuda,
+    flash_attention_plain,
+)
+from repro_torch.kernels.ssd_scan.kernel import chunked_scan_cuda, chunked_scan_plain
 from repro_torch.kernels.sptrsv import kernel, ops
+from repro_torch.models import RuntimeFlags, init_params, prefill
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -93,3 +106,64 @@ def test_slice_on_card(cuda, placement):
     want = np.stack([serial_solve(mat, bmat[:, i]) for i in range(16)], 1)
     np.testing.assert_allclose(x.cpu().numpy(), want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
+
+
+def _scaled_close(got, want, frac):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= frac * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,seq,kdim,vdim", [
+    (3, 128, 32, 48),     # V not a multiple of the 64-column tile
+    (2, 200, 64, 128),    # L not a multiple of the 64-row tile
+    (16, 1000, 64, 128),  # the serve shape's widths and prompt length
+])
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_scan_kernel_matches_plain(cuda, bh, seq, kdim, vdim, inclusive):
+    g = torch.Generator(device=cuda).manual_seed(seq + kdim)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q, k, v = rnd(bh, seq, kdim), rnd(bh, seq, kdim) * 0.3, rnd(bh, seq, vdim)
+    w = -torch.rand((bh, seq, kdim), generator=g, device=cuda) * 0.25
+    s0 = rnd(bh, kdim, vdim) * 0.1
+    before = chunked_scan_cuda.launches
+    y, sf = chunked_scan_cuda(q, k, v, w, s0, inclusive=inclusive)
+    torch.cuda.synchronize()
+    assert chunked_scan_cuda.launches == before + 1
+    yp, sfp = chunked_scan_plain(q, k, v, w, s0, inclusive=inclusive)
+    _scaled_close(y, yp, 2e-4)
+    _scaled_close(sf, sfp, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, d, causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(d)
+    for lq, lk in ((200, 200), (100, 170)):
+        q, k, v = (torch.randn((6, n, d), generator=g, device=cuda).to(dtype)
+                   for n in (lq, lk, lk))
+        before = flash_attention_cuda.launches
+        o = flash_attention_cuda(q, k, v, scale=d ** -0.5, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches == before + 1 and o.dtype == dtype
+        op = flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal)
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, op, rtol=2e-5, atol=2e-5)
+        else:
+            _scaled_close(o, op, 2e-2)
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_prefill_on_kernels_matches_plain(cuda):
+    cfg = dataclasses.replace(get_config("zamba2-2.7b").reduced(), n_layers=6)
+    model = init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 100)))
+    tokens = tokens.to(cuda)
+    before = (chunked_scan_cuda.launches, flash_attention_cuda.launches)
+    got, _ = prefill(model, tokens, cfg, RuntimeFlags(use_kernels=True))
+    assert (chunked_scan_cuda.launches - before[0],
+            flash_attention_cuda.launches - before[1]) == (6, 2)
+    want, _ = prefill(model, tokens, cfg, RuntimeFlags(use_kernels=False))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

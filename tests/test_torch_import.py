@@ -26,6 +26,10 @@ def test_import_with_jax_blocked():
         "import repro_torch\n"
         "from repro_torch.core import api, executor\n"
         "from repro_torch.kernels.sptrsv import kernel, ops, ref\n"
+        "from repro_torch.kernels.ssd_scan import kernel, ops, ref\n"
+        "from repro_torch.kernels.flash_attention import kernel, ops, ref\n"
+        "import repro_torch.models, repro_torch.models.convert\n"
+        "import repro_torch.launch.serve, repro_torch.configs\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -55,7 +59,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"kernel.py", "ops.py", "executor.py", "api.py", "chip_smoke.py"} <= names
+    assert {"kernel.py", "ops.py", "executor.py", "api.py", "chip_smoke.py",
+            "mamba2.py", "model.py", "convert.py", "serve.py"} <= names
 
 
 def test_default_device_is_cuda_and_raises_without_it():
@@ -74,3 +79,8 @@ def test_default_device_is_cuda_and_raises_without_it():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
+
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.setup(serve.parse_args(["--reduced"]))
