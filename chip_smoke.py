@@ -40,7 +40,9 @@ vocab 32,000, bf16, seeded random weights), through launch/serve.py:
   8. each kernel against its plain twin on the first layer's real inputs
      (scan f32: 2e-4 of max|plain|; attention bf16: 2e-2 of max|plain|),
      its time (CUDA events), its plain twin's (one run), the bound of the
-     card for the same bytes and flops, and for attention PyTorch's
+     card for the same bytes and flops (the scan's also as 3xTF32 on the
+     tensor cores, the way its kernel computes), the P variant the
+     attention kernel ran, and for attention PyTorch's
      scaled_dot_product_attention on the same tensors (a yardstick the
      port never calls).
 
@@ -65,6 +67,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12    # H100 SXM TF32 tensor cores, dense
 RTOL = 1e-5
 REPLACES = {
     "sptrsv_cuda": "src/repro/kernels/sptrsv/kernel.py:200",
@@ -373,6 +376,8 @@ def serve_phase():
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "shape": [bh, seq, kdim, vdim], "flops": flops,
         "peak": "67 TFLOP/s f32 (inputs f32), 3.35 TB/s",
+        # the kernel runs each product as three TF32 products (3xTF32)
+        "bound_ms_tf32x3": max(t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3),
     })
     print(f"chunked_scan_cuda [BH={bh}, L={seq}, K={kdim}, V={vdim}]: "
           f"{ms:.4f} ms, plain {plain_ms:.2f} ms, {flops / 1e9:.3f} GFLOP, bound "
@@ -405,6 +410,8 @@ def serve_phase():
     flops = 4 * bh * d * pairs
     bf16 = qf.dtype == torch.bfloat16
     peak = BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S
+    # P in the PV product of the bf16 kernel (the f32 kernel keeps f32 P)
+    p_variant = attn_kernel.P_VARIANT if bf16 else "f32"
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     entries.append({
         "name": "flash_attention_cuda", "route": "cuda", "source": SOURCES["flash_attention"],
@@ -416,8 +423,10 @@ def serve_phase():
         "peak": ("989 TFLOP/s bf16" if bf16 else "67 TFLOP/s f32") + " (the inputs' "
                 "type), 3.35 TB/s",
         "bound_ms_f32_products": max(t_bytes, flops / FP32_FLOPS_PER_S * 1e3),
+        "p_variant": p_variant,
     })
-    print(f"flash_attention_cuda [BH={bh}, Lq={lq}, Lk={lk}, D={d}], {qf.dtype}: "
+    print(f"flash_attention_cuda [BH={bh}, Lq={lq}, Lk={lk}, D={d}], {qf.dtype}, P as "
+          f"{p_variant}: "
           f"{ms:.4f} ms, plain {plain_ms:.2f} ms, scaled_dot_product_attention "
           f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms, max abs err vs "
           f"plain {err:.3e} (max |plain| {scale:.3e}; library vs plain {lib_err:.3e})",

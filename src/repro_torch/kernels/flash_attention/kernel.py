@@ -4,7 +4,10 @@ Ports `repro/kernels/flash_attention/kernel.py`.  `flash_attention_cuda`
 replaces ``flash_attention_pallas``; it is written by hand in CUDA C++ for
 ``sm_90a`` (`csrc/flash_attention.cu`, whose head note gives the design and
 what bounds it).  It chooses its own tiles (64 query rows per CTA, 64 key
-rows per step) in place of the TPU kernel's VMEM block sizes.
+rows per step) in place of the TPU kernel's VMEM block sizes.  bf16 inputs
+run FlashAttention-2 on the tensor cores (``mma.sync``, f32 accumulation);
+f32 inputs run the products in f32 on the CUDA cores, so they keep f32
+accuracy.  `check_kernel_limits` states the shapes each kernel takes.
 `flash_attention_plain` is its plain twin: the same online softmax over kv
 tiles of `BLOCK_K` rows (`ref.attention_blocked`).
 
@@ -24,12 +27,17 @@ from repro_torch.kernels.common import build_library
 
 from .ref import attention_blocked
 
-__all__ = ["build", "flash_attention_cuda", "flash_attention_plain", "BLOCK_K",
-           "MAX_D"]
+__all__ = ["build", "check_kernel_limits", "flash_attention_cuda",
+           "flash_attention_plain", "BLOCK_K", "MAX_D", "P_VARIANT"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BLOCK_K = 64   # csrc/flash_attention.cu BK
-MAX_D = 128    # csrc/flash_attention.cu MAX_D
+MAX_D = 128    # csrc/flash_attention.cu MAX_D (f32) and the largest bf16 instance
+MMA_D_STEP = 16  # bf16: D is a whole number of m16n8k16 k-steps
+BLOCK_Q = 64   # csrc/flash_attention.cu BQ
+# csrc/flash_attention.cu: the bf16 kernel rounds P to bf16 for the PV product
+# (f32 accumulation), as scaled_dot_product_attention does
+P_VARIANT = "bf16"
 MAX_GRID_Y = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,6 +75,31 @@ def _check(q, k, v) -> None:
                          f"{k.device}, {v.device}")
 
 
+def check_kernel_limits(bh: int, lq: int, lk: int, d: int, dtype) -> None:
+    """Raise ``ValueError`` for a shape or type the CUDA kernels cannot take.
+
+    Pure (no device, no library): the CUDA branch of `flash_attention_cuda`
+    calls it before it launches, so such a shape raises and never reaches
+    the plain twin.  f32: ``D <= MAX_D``, ``BH <= 65535`` (grid y).  bf16:
+    ``D`` a multiple of `MMA_D_STEP` up to `MAX_D` (one compiled instance per
+    width), at most 65535 query tiles of `BLOCK_Q` rows (grid y).
+    """
+    if dtype not in _DTYPES:
+        raise ValueError(f"the kernels take {list(_DTYPES)}, got {dtype}")
+    if bh < 1 or lq < 1 or lk < 0:
+        raise ValueError(f"the kernels take BH >= 1, Lq >= 1, got BH={bh}, Lq={lq}, Lk={lk}")
+    if dtype == torch.bfloat16:
+        if d % MMA_D_STEP or not MMA_D_STEP <= d <= MAX_D:
+            raise ValueError(f"the bf16 kernel takes D a multiple of {MMA_D_STEP} up to "
+                             f"{MAX_D}, got D={d}")
+        if -(-lq // BLOCK_Q) > MAX_GRID_Y or bh > 2**31 - 1:
+            raise ValueError(f"the bf16 kernel takes Lq <= {BLOCK_Q * MAX_GRID_Y} and "
+                             f"BH < 2**31, got Lq={lq}, BH={bh}")
+    elif not 1 <= d <= MAX_D or bh > MAX_GRID_Y:
+        raise ValueError(f"the f32 kernel takes D <= {MAX_D} and BH <= {MAX_GRID_Y}, "
+                         f"got D={d}, BH={bh}")
+
+
 def flash_attention_plain(q, k, v, *, scale: float, causal: bool = True):
     """Plain PyTorch twin of `flash_attention_cuda` (any device).
 
@@ -87,9 +120,7 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool = True):
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on CUDA or CPU tensors, got {q.device}")
     bh, lq, d = q.shape
-    if d > MAX_D or bh > MAX_GRID_Y:
-        raise ValueError(f"the kernel takes D <= {MAX_D} and BH <= {MAX_GRID_Y}, "
-                         f"got D={d}, BH={bh}")
+    check_kernel_limits(bh, lq, k.shape[1], d, q.dtype)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lib = build()
     o = torch.empty_like(q)

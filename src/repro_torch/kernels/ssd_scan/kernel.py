@@ -6,6 +6,10 @@ Ports `repro/kernels/ssd_scan/kernel.py`.  `chunked_scan_cuda` replaces
 `chunked_scan_plain` is the same algorithm in plain PyTorch: the
 ``_chunked_jnp`` algorithm over the kernel's tiles of `TILE` rows.
 
+The kernel runs its products on the tensor cores in the 3xTF32 split
+(~f32 accuracy), one CTA per b*h and 128 state columns; `check_kernel_limits`
+states the shapes it takes.
+
 Both walk the sequence in tiles of 64 rows and carry the state from tile to
 tile; they take no chunk.  The recurrence is the same function under any
 chunking, and a 64-row tile keeps ``exp(-cumsum(w))`` within e^16 under the
@@ -27,11 +31,13 @@ import torch
 
 from repro_torch.kernels.common import build_library
 
-__all__ = ["build", "chunked_scan_cuda", "chunked_scan_plain", "TILE", "MAX_K"]
+__all__ = ["build", "check_kernel_limits", "chunked_scan_cuda", "chunked_scan_plain",
+           "TILE", "MAX_K"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 TILE = 64   # csrc/ssd_scan.cu TILE
-MAX_K = 64  # csrc/ssd_scan.cu MAX_K
+MAX_K = 64  # csrc/ssd_scan.cu KP
+ROW_ALIGN = 4  # K and V in whole 16-byte copies (cp.async) of f32
 MAX_GRID_Y = 65535
 
 _LIB: ctypes.CDLL | None = None
@@ -68,6 +74,24 @@ def _check(q, k, v, w, s0) -> None:
                              f"{tuple(a.shape)}")
         if a.device != q.device:
             raise ValueError(f"{name} is on {a.device}, q on {q.device}")
+
+
+def check_kernel_limits(bh: int, seq: int, kdim: int, vdim: int) -> None:
+    """Raise ``ValueError`` for a shape the CUDA kernel cannot take.
+
+    Pure (no device, no library): the CUDA branch of `chunked_scan_cuda`
+    calls it before it launches, so such a shape raises and never reaches
+    the plain twin.  K <= `MAX_K`; K and V multiples of `ROW_ALIGN` (rows
+    load as 16-byte copies); 1 <= BH <= 65535 (grid y); any L >= 0.
+    """
+    if not 1 <= kdim <= MAX_K or kdim % ROW_ALIGN:
+        raise ValueError(f"the kernel takes K a multiple of {ROW_ALIGN} up to {MAX_K}, "
+                         f"got K={kdim}")
+    if vdim < 1 or vdim % ROW_ALIGN:
+        raise ValueError(f"the kernel takes V a multiple of {ROW_ALIGN}, got V={vdim}")
+    if not 1 <= bh <= MAX_GRID_Y or seq < 0:
+        raise ValueError(f"the kernel takes 1 <= BH <= {MAX_GRID_Y} and L >= 0, got "
+                         f"BH={bh}, L={seq}")
 
 
 def chunked_scan_plain(q, k, v, w, s0, *, inclusive: bool = True):
@@ -114,9 +138,7 @@ def chunked_scan_cuda(q, k, v, w, s0, *, inclusive: bool = True):
         raise ValueError(f"the scan runs on CUDA or CPU tensors, got {q.device}")
     bh, seq, kdim = q.shape
     vdim = v.shape[2]
-    if kdim > MAX_K or bh > MAX_GRID_Y:
-        raise ValueError(f"the kernel takes K <= {MAX_K} and BH <= {MAX_GRID_Y}, "
-                         f"got K={kdim}, BH={bh}")
+    check_kernel_limits(bh, seq, kdim, vdim)
     q, k, v, w, s0 = (a.contiguous() for a in (q, k, v, w, s0))
     lib = build()
     y = torch.empty_like(v)

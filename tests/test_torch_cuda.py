@@ -9,8 +9,10 @@ Each kernel is held against its plain PyTorch twin on the same CUDA
 tensors: the SpTRSV kernels at rtol 1e-5, atol 1e-5 (as
 tests/test_blocked.py), and the slice end to end against the serial
 forward substitution; the scan at 2e-4 of the plain result's largest value
-(f32, sums in another order); attention at 2e-5 in f32 and 2e-2 of the
-largest value in bf16 (both round the same f32 sums to bf16); the reduced
+(f32, sums in another order; the kernel's 3xTF32 products keep ~f32
+accuracy); attention at 2e-5 in f32 (the f32 kernel stays on the CUDA
+cores) and 2e-2 of the largest value in bf16 (the kernel rounds P to bf16
+for the PV product, as scaled_dot_product_attention does); the reduced
 Zamba2 prefill on the kernels against the plain path at 1e-4.
 """
 
@@ -29,6 +31,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_cuda,
     flash_attention_plain,
 )
+from repro_torch.kernels.ssd_scan.ops import MIN_LOG_DECAY
 from repro_torch.kernels.ssd_scan.kernel import chunked_scan_cuda, chunked_scan_plain
 from repro_torch.kernels.sptrsv import kernel, ops
 from repro_torch.models import RuntimeFlags, init_params, prefill
@@ -153,6 +156,75 @@ def test_flash_kernel_matches_plain(cuda, d, causal, dtype):
             torch.testing.assert_close(o, op, rtol=2e-5, atol=2e-5)
         else:
             _scaled_close(o, op, 2e-2)
+
+
+def _scan_inputs(cuda, bh, seq, kdim, vdim, w=None):
+    g = torch.Generator(device=cuda).manual_seed(seq * 7 + kdim + vdim)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q, k, v = rnd(bh, seq, kdim), rnd(bh, seq, kdim) * 0.3, rnd(bh, seq, vdim)
+    if w is None:
+        w = -torch.rand((bh, seq, kdim), generator=g, device=cuda) * 0.25
+    return q, k, v, w, rnd(bh, kdim, vdim) * 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [64, 63, 65, 1000])   # one tile, ragged, one row over
+@pytest.mark.parametrize("kdim", [32, 64])             # K below and at the key width
+@pytest.mark.parametrize("vdim", [48, 128, 200])       # V below, at and past 128
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_scan_tf32x3_kernel_edges(cuda, seq, kdim, vdim, inclusive):
+    q, k, v, w, s0 = _scan_inputs(cuda, 4, seq, kdim, vdim)
+    before = chunked_scan_cuda.launches
+    y, sf = chunked_scan_cuda(q, k, v, w, s0, inclusive=inclusive)
+    torch.cuda.synchronize()
+    assert chunked_scan_cuda.launches == before + 1
+    yp, sfp = chunked_scan_plain(q, k, v, w, s0, inclusive=inclusive)
+    _scaled_close(y, yp, 2e-4)
+    _scaled_close(sf, sfp, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_scan_kernel_at_the_decay_clamp_is_finite(cuda, inclusive):
+    """w at the clamp over the whole sequence: every factor reaches e^16 at
+    the tile's ends, and the result stays finite and matches the twin."""
+    bh, seq, kdim, vdim = 4, 1000, 64, 128
+    w = torch.full((bh, seq, kdim), MIN_LOG_DECAY, device=cuda)
+    q, k, v, w, s0 = _scan_inputs(cuda, bh, seq, kdim, vdim, w)
+    y, sf = chunked_scan_cuda(q, k, v, w, s0, inclusive=inclusive)
+    assert torch.isfinite(y).all() and torch.isfinite(sf).all()
+    yp, sfp = chunked_scan_plain(q, k, v, w, s0, inclusive=inclusive)
+    _scaled_close(y, yp, 2e-4)
+    _scaled_close(sf, sfp, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("bh,lq,lk,causal", [
+    (64, 1000, 1000, True),    # ragged last q and kv tile; 1,024 CTAs, several per SM
+    (64, 1000, 1000, False),
+    (5, 130, 70, False),       # Lq != Lk
+    (5, 100, 170, False),
+    (5, 130, 70, True),        # causal keeps c <= row whatever Lk
+])
+def test_flash_mma_kernel_edges(cuda, d, bh, lq, lk, causal):
+    g = torch.Generator(device=cuda).manual_seed(lq + lk + d)
+    q, k, v = (torch.randn((bh, n, d), generator=g, device=cuda).to(torch.bfloat16)
+               for n in (lq, lk, lk))
+    before = flash_attention_cuda.launches
+    o = flash_attention_cuda(q, k, v, scale=d ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1 and o.dtype == torch.bfloat16
+    _scaled_close(o, flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal), 2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_a_width_it_cannot_take(cuda):
+    q = torch.zeros((2, 64, 40), device=cuda, dtype=torch.bfloat16)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention_cuda(q, q, q, scale=1.0)
+    assert flash_attention_cuda.launches == before
 
 
 @pytest.mark.cuda

@@ -95,3 +95,69 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="multiple"):
         gqa_attention(torch.zeros(1, 4, 3, 8), torch.zeros(1, 4, 2, 8),
                       torch.zeros(1, 4, 2, 8))
+    # the CUDA kernels' own limits, checked before any launch (pure, so here
+    # on the CPU): a shape they cannot take raises and never reaches the twin
+    bf16, f32 = torch.bfloat16, torch.float32
+    for bh, lq, lk, d, dtype, match in (
+            (2, 16, 16, 40, bf16, "multiple of 16"),   # not whole mma k-steps
+            (2, 16, 16, 8, bf16, "multiple of 16"),
+            (2, 16, 16, 144, bf16, "multiple of 16 up to 128"),
+            (2, 16, 16, 144, f32, "D <= 128"),
+            (70000, 16, 16, 64, f32, "BH <= 65535"),   # grid y of the f32 kernel
+            (2, 64 * 65535 + 1, 16, 64, bf16, "Lq <="),  # grid y of the bf16 kernel
+            (2, 0, 16, 64, bf16, "Lq >= 1"),
+            (2, 16, 16, 64, torch.float16, "take")):
+        with pytest.raises(ValueError, match=match):
+            kernel.check_kernel_limits(bh, lq, lk, d, dtype)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d,dtype", [
+    (256, 1000, 1000, 80, torch.bfloat16),   # the serve shape
+    (70000, 64, 64, 80, torch.bfloat16),     # b*h on grid x: past 65535
+    (6, 200, 200, 80, torch.float32),
+    (6, 100, 170, 36, torch.float32),        # f32 takes any D up to 128
+])
+def test_kernel_limits_accept(bh, lq, lk, d, dtype):
+    kernel.check_kernel_limits(bh, lq, lk, d, dtype)
+
+
+def _online_softmax_p_rounded(q, k, v, *, scale, causal):
+    """The bf16 kernel's arithmetic in plain torch: online softmax over 64-key
+    tiles in f32, P rounded to bf16 for the PV product (f32 accumulation),
+    the row sums over f32 P, the output rounded to bf16."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    bh, lq, _ = q.shape
+    lk = k.shape[1]
+    qf = q.to(f32)
+    rows = torch.arange(lq)[None, :, None]
+    m = torch.full((bh, lq), -1e30)
+    l = torch.zeros(bh, lq)
+    acc = torch.zeros(bh, lq, q.shape[2])
+    for k0 in range(0, lk, kernel.BLOCK_K):
+        kc, vc = k[:, k0:k0 + kernel.BLOCK_K].to(f32), v[:, k0:k0 + kernel.BLOCK_K].to(f32)
+        s = torch.einsum("bqd,bkd->bqk", qf, kc) * scale
+        if causal:
+            cols = k0 + torch.arange(kc.shape[1])[None, None, :]
+            s = torch.where(rows >= cols, s, -1e30)
+        m_cur = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bqk,bkd->bqd", p.to(bf16).to(f32), vc)
+        m = m_cur
+    return (acc / l[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_p_rounded_to_bf16_stays_within_tolerance(causal):
+    """The precision argument of the bf16 kernel, on the CPU: P rounded to
+    bf16 in the blocked online softmax at D = 80 stays within 2e-2 of the
+    twin's largest value, the tolerance the kernel is held to on the card,
+    and moves some outputs by a bf16 step that f32 P does not."""
+    assert kernel.P_VARIANT == "bf16"
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(80 + causal, [(4, 1000, 80)] * 3))
+    want = kernel.flash_attention_plain(q, k, v, scale=80 ** -0.5, causal=causal).float()
+    got = _online_softmax_p_rounded(q, k, v, scale=80 ** -0.5, causal=causal).float()
+    err = (got - want).abs().max().item()
+    assert 0 < err <= 2e-2 * want.abs().max().item(), err

@@ -174,3 +174,90 @@ def test_wrapper_rejects_bad_inputs():
         kernel.chunked_scan_cuda(q.double(), q, v, q, s0)
     with pytest.raises(ValueError, match="s0"):
         kernel.chunked_scan_cuda(q, q, v, q, torch.zeros(2, 4, 8))
+    # the CUDA kernel's own limits, checked before any launch (pure, so here
+    # on the CPU): a shape it cannot take raises and never reaches the twin
+    for bh, seq, kdim, vdim, match in ((2, 64, 65, 4, "K a multiple of 4 up to 64"),
+                                       (2, 64, 6, 4, "K a multiple of 4"),
+                                       (2, 64, 8, 6, "V a multiple of 4"),
+                                       (70000, 64, 8, 4, "BH <= 65535"),
+                                       (0, 64, 8, 4, "BH <= 65535")):
+        with pytest.raises(ValueError, match=match):
+            kernel.check_kernel_limits(bh, seq, kdim, vdim)
+
+
+@pytest.mark.parametrize("bh,seq,kdim,vdim", [
+    (320, 1000, 64, 128),   # the serve shape
+    (3, 0, 32, 48),
+    (1, 65, 4, 200),        # V past one CTA's 128 columns: a second CTA column
+])
+def test_kernel_limits_accept(bh, seq, kdim, vdim):
+    kernel.check_kernel_limits(bh, seq, kdim, vdim)
+
+
+def _tf32(x):
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest on the bit
+    pattern (add 0x1000), then clear the 13 low mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul(a, b, mode):
+    """a @ b with operands rounded as the tensor cores take them: "tf32"
+    (one product of rounded operands) or "tf32x3" (x = hi + lo, both TF32,
+    and a_lo b_hi + a_hi b_lo + a_hi b_hi summed in f32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if mode == "tf32":
+        return ah @ bh
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _scan_emulated(q, k, v, w, s0, mode):
+    """`chunked_scan_plain` (inclusive) with every product as `_matmul`."""
+    bh, seq, kdim = q.shape
+    t = kernel.TILE
+    pad = (-seq) % t
+    nt = (seq + pad) // t
+    tiles = lambda x: torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(bh, nt, t, -1)
+    q, k, v, w = tiles(q), tiles(k), tiles(v), tiles(w)
+    cums = torch.cumsum(w, dim=2)
+    total = cums[:, :, -1:, :]
+    qd, kn, ke = q * torch.exp(cums), k * torch.exp(-cums), k * torch.exp(total - cums)
+    mask = torch.tril(torch.ones(t, t, dtype=torch.bool))
+    s, ys = s0, []
+    for i in range(nt):
+        scores = torch.where(mask, _matmul(qd[:, i], kn[:, i].transpose(-1, -2), mode), 0.0)
+        ys.append(_matmul(scores, v[:, i], mode) + _matmul(qd[:, i], s, mode))
+        s = (s * torch.exp(total[:, i, 0, :])[..., None]
+             + _matmul(ke[:, i].transpose(-1, -2), v[:, i], mode))
+    return torch.cat(ys, dim=1)[:, :seq], s
+
+
+@pytest.mark.parametrize("mode", ["tf32x3", "tf32"])
+@pytest.mark.parametrize("what", ["tile", "scan"])
+def test_tf32x3_split_keeps_the_scan_within_its_tolerance(what, mode):
+    """The precision argument of the kernel's 3xTF32 products, on the CPU.
+
+    ``tile``: one serve-shaped tile's output y = A v + qd S (64 rows, K 64,
+    V 128; A the masked 64 x 64 x 64 score product, S a state of unit
+    scale).  ``scan``: the whole recurrence at the serve widths over 1000
+    rows.  Against f32, the split stays within 2e-4 of the largest value
+    (the scan's tolerance) by three orders of magnitude; a single TF32
+    product does not stay within it.
+    """
+    rng = np.random.default_rng(21)
+    f = np.float32
+    bh, seq, kdim, vdim = (1, 64, 64, 128) if what == "tile" else (2, 1000, 64, 128)
+    q = torch.from_numpy(rng.standard_normal((bh, seq, kdim)).astype(f))
+    k = torch.from_numpy((rng.standard_normal((bh, seq, kdim)) * 0.3).astype(f))
+    v = torch.from_numpy(rng.standard_normal((bh, seq, vdim)).astype(f))
+    w = torch.from_numpy((-rng.uniform(0, 0.25, (bh, seq, kdim))).astype(f))
+    s0 = torch.from_numpy((rng.standard_normal((bh, kdim, vdim))
+                           * (3.0 if what == "tile" else 0.1)).astype(f))
+    yp, sp = kernel.chunked_scan_plain(q, k, v, w, s0)
+    y, s = _scan_emulated(q, k, v, w, s0, mode)
+    err = max((y - yp).abs().max().item(), (s - sp).abs().max().item())
+    rel = err / max(yp.abs().max().item(), sp.abs().max().item())
+    if mode == "tf32x3":
+        assert rel <= 2e-4 * 1e-2, rel
+    else:
+        assert rel > 2e-4, rel
