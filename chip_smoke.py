@@ -21,23 +21,31 @@ largest matrices with 16 right-hand sides:
      warm-up), its plain version (one run), cuSPARSE's triangular solve on
      the same matrix (torch.triangular_solve on a sparse CSR tensor, a
      yardstick the port never calls), and the bound of the card for the
-     same bytes and flops.
+     same bytes and flops; the kernel's microseconds and SM clocks per
+     emitted cycle, at the SM clock nvidia-smi reads while the card runs
+     a queue of the kernel's launches, and the time make_solver adds to
+     the kernel (solve_ms - ms);
+  6. ptxas: registers, spills and static shared memory of every SpTRSV
+     kernel instance, from the build's log (kept beside a reused library;
+     a spill, or a log without the 16 resident and 8 blocked instances,
+     fails the smoke), and the dynamic shared memory the two main-path
+     launches ask for.
 
 Then Zamba2-2.7B serving at full width (54 Mamba2 layers, d_model 2560,
 vocab 32,000, bf16, seeded random weights), through launch/serve.py:
 8 requests x 1000 prompt tokens, then 32 greedy decode steps:
 
-  6. the same prefill on the kernels and on the plain path
+  7. the same prefill on the kernels and on the plain path
      (use_kernels=False): in bf16 the last position's logits may differ by
      no more than twice the rounding floor (the plain path against itself
      with attention summed in the twin's order), and in f32 (the same
      seed's weights unrounded) by 1e-4 relative L2 at most; the first scan
-     and attention launch's inputs are kept for step 8;
-  7. serving: the launch counts of prefill (54 scan, 9 attention) and of
+     and attention launch's inputs are kept for step 9;
+  8. serving: the launch counts of prefill (54 scan, 9 attention) and of
      decode (none), tokens inside the vocabulary, finite logits, and the
      server's prefill and decode tokens/s over SERVE_RUNS runs (the first
      is the counted one);
-  8. each kernel against its plain twin on the first layer's real inputs
+  9. each kernel against its plain twin on the first layer's real inputs
      (scan f32: 2e-4 of max|plain|; attention bf16: 2e-2 of max|plain|),
      its time (CUDA events), its plain twin's (one run), the bound of the
      card for the same bytes and flops (the scan's also as 3xTF32 on the
@@ -99,6 +107,50 @@ def _close(got, ref, what):
     return err
 
 
+def _sm_clock_under_load(fn, launches):
+    """``clocks.sm`` (MHz) and ``power.limit`` from nvidia-smi, read while
+    ``launches`` calls of ``fn`` queued on the card run."""
+    import torch
+
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.limit", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    mhz, limit = (float(v) for v in out.split(","))
+    return mhz, limit
+
+
+def _ptxas_summary(log):
+    """[(kernel, registers, spill store bytes, spill load bytes, smem bytes)]
+    from ``nvcc -Xptxas -v`` output; a kernel is its name and template
+    arguments (planes, lanes per thread[, x in shared memory])."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = re.search(r"(resident_kernel|blocked_kernel)", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            cur = [f"{name.group(1) if name else mangled}<{','.join(args)}>", 0, 0, 0, 0]
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur[2], cur[3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur[1] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur[4] = int(m.group(1)) if m else 0
+    return [tuple(r) for r in rows]
+
+
 def _event_ms(fn, reps):
     import torch
 
@@ -120,7 +172,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
-    from repro_torch.core import api
+    from repro_torch.core import api, dag
     from repro_torch.core.executor import _psum_slots, execute_numpy
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attention import kernel as attn_kernel
@@ -139,7 +191,17 @@ def main() -> int:
         family.build()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
     for name in SOURCES:
-        print(f"[{name}] {common.BUILD_LOGS.get(name, 'reused').strip()}")
+        if name != "sptrsv":
+            print(f"[{name}] {common.BUILD_LOGS.get(name, 'reused').strip()}")
+    ptxas = _ptxas_summary(common.BUILD_LOGS.get("sptrsv", ""))
+    for kname_, regs, st, ld, sm in ptxas:
+        print(f"[sptrsv ptxas] {kname_}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B, static smem {sm} B")
+    # 2 planes x 4 lane widths x (x in shared or device memory), and 2 x 4
+    families = [k.split("<")[0] for k, *_ in ptxas]
+    assert (families.count("resident_kernel"), families.count("blocked_kernel")) == (16, 8), \
+        f"ptxas reported {len(ptxas)} SpTRSV kernels, not the 16 resident and 8 blocked"
+    assert all(st == 0 and ld == 0 for _, _, st, ld, _ in ptxas), "ptxas spilled"
 
     wrappers = {"sptrsv_cuda": kernel.sptrsv_cuda,
                 "sptrsv_cuda_blocked": kernel.sptrsv_cuda_blocked}
@@ -172,8 +234,9 @@ def main() -> int:
             solver(bmat)
         torch.cuda.synchronize()
         solve_ms = (time.perf_counter() - t0) * 1e3 / 5
+        levels = int(dag.compute_levels(mat).max()) + 1
         print(f"{name}: n={mat.n} nnz={mat.nnz} emitted_cycles={prog.cycles} "
-              f"compile {t_compile:.2f} s, placement {solver.placement}, "
+              f"DAG levels {levels}, compile {t_compile:.2f} s, placement {solver.placement}, "
               f"launches {launches}, max abs err vs float64 program "
               f"{err_prog:.3e}, vs serial_solve {err_serial:.3e}, "
               f"solve through make_solver {solve_ms:.4f} ms", flush=True)
@@ -188,7 +251,10 @@ def main() -> int:
         if placement == "blocked":
             kw.update(window=core.plan.window, stride=core.plan.stride,
                       cycles_per_block=128)
-        kernel_kw = dict(kw, x_in_smem=core.x_in_smem) if placement == "resident" else kw
+        kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA)
+        if placement == "resident":
+            kernel_kw["x_in_smem"] = core.x_in_smem
+        smem = ops.state_bytes(prog, placement=placement, plan=core.plan)
         xk = wrappers[kname](instr, values, bp, **kernel_kw)
         t0 = time.perf_counter()
         xp = plains[kname](instr, values, bp, **kw)
@@ -209,7 +275,9 @@ def main() -> int:
         # -- times -----------------------------------------------------------
         for _ in range(2):
             wrappers[kname](instr, values, bp, **kernel_kw)
-        ms = _event_ms(lambda: wrappers[kname](instr, values, bp, **kernel_kw), 10)
+        fn = lambda: wrappers[kname](instr, values, bp, **kernel_kw)
+        ms = _event_ms(fn, 10)
+        sm_mhz, power_limit = _sm_clock_under_load(fn, max(20, int(600 / ms)))
         lib = torch.sparse_csr_tensor(
             torch.from_numpy(mat.rowptr), torch.from_numpy(mat.colidx),
             torch.from_numpy(mat.values.astype(np.float32)), size=(mat.n, mat.n),
@@ -229,13 +297,20 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "matrix": name, "B": B,
-            "placement": placement, "emitted_cycles": prog.cycles,
-            "solve_ms": solve_ms,
+            "placement": placement, "emitted_cycles": prog.cycles, "dag_levels": levels,
+            "solve_ms": solve_ms, "make_solver_overhead_ms": solve_ms - ms,
             "us_per_cycle": ms * 1e3 / prog.cycles,
+            "sm_clock_mhz": sm_mhz, "power_limit_w": power_limit,
+            "sm_clocks_per_cycle": ms * 1e3 / prog.cycles * sm_mhz,
+            "cols_per_cta": ops.COLS_PER_CTA, "smem_bytes_per_cta": smem,
         })
-        print(f"{kname} on {name}: {ms:.4f} ms ({ms * 1e3 / prog.cycles:.4f} us per "
-              f"emitted cycle), plain {plain_ms:.1f} ms, library {library_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+        print(f"{kname} on {name}: {ms:.4f} ms ({ms * 1e3 / prog.cycles:.4f} us, "
+              f"{ms * 1e3 / prog.cycles * sm_mhz:.1f} SM clocks per emitted cycle at "
+              f"clocks.sm {sm_mhz:.0f} MHz under load, power.limit {power_limit:.0f} W), "
+              f"{ops.COLS_PER_CTA} columns per CTA, shared memory per CTA {smem}, "
+              f"plain {plain_ms:.1f} ms, library {library_ms:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.6f} ms, make_solver adds {solve_ms - ms:.4f} ms",
+              flush=True)
 
     entries += serve_phase()
     print(json.dumps({"kernels": entries}))

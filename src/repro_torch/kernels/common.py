@@ -5,7 +5,8 @@
   family's ``csrc/*.cu`` is compiled for ``sm_90a`` into a shared library
   with a plain C interface, ``build/lib<name>-<tag>.so`` at the repository
   root, where the tag hashes the source and the flags: an edited source is
-  rebuilt, an unchanged one reused.  The families load it with ctypes.
+  rebuilt, an unchanged one reused.  The compiler's output is kept beside
+  it (``.log``).  The families load it with ctypes.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ __all__ = ["resolve_device", "build_library", "build_libraries", "BUILD_DIR",
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# name -> the compiler's output of the last build in this process
-# (``-Xptxas -v``: registers, shared memory and spills per kernel)
+# name -> the compiler's output of the build that made the loaded library
+# (``-Xptxas -v``: registers, shared memory and spills per kernel), read
+# back from its ``.log`` when the library is reused
 BUILD_LOGS: dict[str, str] = {}
 
 
@@ -70,6 +72,9 @@ def build_libraries(specs: dict[str, Path]) -> dict[str, Path]:
     procs = {}
     for name, path in paths.items():
         if path.exists():
+            log = path.with_suffix(".log")
+            if log.exists():
+                BUILD_LOGS[name] = log.read_text()
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -83,6 +88,7 @@ def build_libraries(specs: dict[str, Path]) -> dict[str, Path]:
             failed.append(f"nvcc failed to build {Path(specs[name]).name}:\n"
                           f"{BUILD_LOGS[name]}")
         else:
+            paths[name].with_suffix(".log").write_text(BUILD_LOGS[name])
             os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("\n".join(failed))

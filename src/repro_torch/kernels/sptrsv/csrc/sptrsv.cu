@@ -7,270 +7,542 @@
 //
 // What bounds them on this card: neither bytes nor operations.  A solve
 // moves ~8 B per lane-cycle of instruction stream plus x and b once, and
-// does 2 flops per non-zero and column; both bounds are microseconds.  The
-// time goes to the dependency chain: cycle t+1 may read a row that cycle t
-// finalized, so every cycle ends in a CTA-wide barrier and the solve costs
-// (emitted cycles) x (latency of one cycle).  The design shortens that
-// latency:
-//   * one CTA per tile of `bt` RHS columns, one thread per (lane, column);
-//     the default bt=1 gives 64-thread CTAs (two warps per barrier) and
-//     spreads the columns over the SMs;
-//   * the per-thread psum feedback lives in a register, the psum register
-//     file in shared memory (private to its thread, so it needs no barrier;
-//     laid out slot-major so a warp's accesses never share a bank);
-//   * each thread streams its lane's instruction words and values through
-//     registers GROUP cycles ahead of use, so the stream's device-memory
-//     latency stays off the chain;
-//   * b never sits on the chain either: x rows start out holding b, and a
-//     FINAL reads b[src] from its own row before overwriting it.  This is
-//     exact because a row is read by EDGE lanes only after its FINAL (the
-//     scheduler's guarantee) and finalized exactly once;
+// does 2 flops per non-zero and column; both bounds are microseconds.  Cycle
+// t+1 may read a row that cycle t finalized, so the solve is a dependent
+// chain of emitted cycles and costs (emitted cycles) x (latency of one
+// cycle).  Tensor cores, wgmma and clusters have nothing to offer such a
+// chain; the design shortens the cycle instead:
+//
+//   * One warp per RHS column.  Thread t of the warp owns the LPT adjacent
+//     lanes [t*LPT, t*LPT + LPT) of the P lanes (LPT = 1, 2, 4, 8 for
+//     P <= 32, 64, 128, 256; threads past P run NOP words).  A cycle's
+//     FINAL writes reach the next cycle's reads through __syncwarp(), which
+//     orders shared and global memory among the warp's threads: no CTA
+//     barrier anywhere in the cycle loop.  A CTA holds `cols_per_cta` such
+//     warps, one column each, that never wait on each other.  A thread's
+//     lanes are independent within a cycle, which gives it ILP.
+//   * A branch-free cycle.  Every field is decoded first; the psum slot and
+//     the x row that the word names are always loaded (NOP and padding
+//     words name row 0 and slot 0); the psum mux is selects; the slot and x
+//     stores are predicated.  No FMA contraction (__fmul_rn, __fadd_rn,
+//     __fsub_rn), so the kernels round exactly like their plain twins.
+//   * Software-pipelined: while cycle t's x load is in flight, the words
+//     of t+3 are loaded, those of t+2 decoded into shared addresses and
+//     flags, and the psum slot of t+1 read, so after each __syncwarp only
+//     the x load, two flops, the store and the next __syncwarp remain on
+//     the chain.  Shared memory is addressed through 32-bit addresses
+//     computed once, and a CTA holds at most 8 warps so a thread may use
+//     255 registers: with fewer, ptxas re-derives bases every cycle.
+//     What is left bounds the kernels: one warp issues the cycle's ~57
+//     instructions (two lanes a thread at P = 64).
+//   * The instruction stream enters shared memory by cp.async: each thread
+//     copies its own lanes' words and values (LPT*4 bytes per plane and
+//     cycle) into a per-warp ring, CHUNK cycles per commit group, LEAD
+//     chunks ahead of use, so no cross-thread hand-off is needed and the
+//     device-memory latency of the stream stays off the chain.
+//   * b never sits on the chain: x rows start out holding b, and a FINAL
+//     reads b[src] from its own row before overwriting it.  This is exact
+//     because a row is read by EDGE lanes only after its FINAL (the
+//     scheduler's guarantee) and finalized exactly once.
+//   * The psum register file lives in shared memory, private to its lane,
+//     laid out [slot][k][thread] so a warp's accesses never share a bank.
 //   * x lives in shared memory: the whole padded vector in the resident
 //     kernel where it fits (else in device memory, where it stays in L2),
-//     a ring of `window` rows in the blocked kernel.
-//
-// Synchronisation: an EDGE only reads rows finalized in an earlier cycle and
-// FINAL rows are distinct within a cycle, so one __syncthreads() per cycle,
-// between cycle t's writes and cycle t+1's reads, is all that is needed.
+//     a ring of rows in the blocked kernel.
 //
 // Row-blocked sweep (sptrsv_blocked).  Cycle block g touches only rows
 // [g*stride, g*stride + window) (checked on the host from the program's row
-// envelope).  Row r lives in ring slot r % window.  At boundary g-1 -> g the
-// rows [(g-1)*stride, g*stride) retire: each is written to x in device memory
-// and its slot is refilled with b of row r + window, the row entering the
-// window in that slot.  The flush reads a slot before the refill writes it,
-// in the same thread, and a barrier closes the boundary, which is the
-// flush-before-reuse order of the TPU kernel.  The TPU kernel's shift copy
-// disappears (a ring needs none) and so does its x refill: it copies rows
-// that lie beyond every earlier window, which no FINAL can have written yet,
-// so what it brings in is never read.  After the last block the whole window
+// envelope).  A block is a whole number of CHUNKs, so its boundary runs at
+// the top of a chunk and the unrolled cycles carry no test; the wrapper
+// pads blocks of other lengths with NOP cycles, which change no state.
+// Row r lives in ring slot r & (ring_rows - 1), with ring_rows
+// the power of two >= window, so a word's ring slot is one AND of its src
+// field, decoded with the rest of the word before the sync (the window's
+// rows are distinct modulo ring_rows).  At boundary g-1 -> g the rows
+// [(g-1)*stride, g*stride) retire to x in device memory, and then the rows
+// entering the window, [(g-1)*stride + window, g*stride + window), take
+// their b from a per-warp staging area that cp.async filled during block
+// g-1: a boundary costs shared-memory copies and two __syncwarp()s, not a
+// device-memory round trip.  The TPU kernel's shift copy disappears (a
+// ring needs none) and so does its x refill: it copies rows that lie
+// beyond every earlier window, which no FINAL can have written yet, so
+// what it brings in is never read.  After the last block the whole window
 // is flushed.
 //
 // The C entry points launch on the caller's stream, do not synchronise and
 // return cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int OP_EDGE = 1;
-constexpr int OP_FINAL = 2;
-constexpr int PS_RESET = 1;
-constexpr int PS_LOAD = 2;
-constexpr int PS_STORE_RESET = 3;
-constexpr int PS_SWAP = 4;
+constexpr unsigned OP_EDGE = 1;
+constexpr unsigned OP_FINAL = 2;
+// The psum control (ctl 0 keep, 1 RESET, 2 LOAD, 3 STORE_RESET, 4 SWAP) as
+// one nibble per ctl value: bit 0 pv = 0, bit 1 pv = slot, bit 2 slot = old
+// feedback.  A word's nibble is CT_LUT >> (4 * ctl), and 4 * ctl is the
+// control bits of the word's upper field masked in place.
+constexpr unsigned F_ZERO = 1, F_SLOT = 2, F_STORE = 4;
+constexpr unsigned CT_LUT = (F_ZERO << 4) | (F_SLOT << 8) | ((F_ZERO | F_STORE) << 12) |
+                            ((F_SLOT | F_STORE) << 16);
 
 // packed word layout (repro_torch/core/program.py)
 constexpr int SRC_BITS = 18;
-constexpr int SRC_MASK = (1 << SRC_BITS) - 1;
-constexpr int OP_MASK = 3;
-constexpr int CTL_SHIFT = 2;
-constexpr int CTL_MASK = 7;
-constexpr int SLOT_SHIFT = 5;
-constexpr int SLOT_MASK = 255;
+constexpr unsigned SRC_MASK = (1u << SRC_BITS) - 1;
 
-constexpr int GROUP = 16;         // cycles of words a thread holds ahead of use
-constexpr int MAX_THREADS = 256;  // P * bt
+constexpr int CHUNK = 8;  // cycles per cp.async group and unrolled loop body
 
-template <int PLANES>
-struct Word {
-  int w[PLANES];
+// Everything that depends on the lanes per thread; kernel.py mirrors it.
+template <int LPT>
+struct Lanes {
+  static constexpr int PP = 32 * LPT;              // lanes per warp row
+  static constexpr int LEAD = LPT <= 2 ? 4 : 2;  // chunks in flight
+  static constexpr int RING = (LEAD + 1) * CHUNK;  // cycles in the ring
+  // columns per CTA: at most 256 threads, so a thread may use 255 registers
+  static constexpr int MAX_WARPS = LPT <= 2 ? 8 : 16 / LPT;
+};
+
+// ------------------------------------------------- shared memory by address
+// Shared memory is addressed through 32-bit shared-window byte addresses
+// computed once, so that per-cycle offsets fold into the instructions.
+// Every access is a volatile asm with a memory clobber: shared accesses
+// keep their program order, which the cycle's ordering relies on.
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ float lds_f32(unsigned a) {
   float v;
-};
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
 
-template <int PLANES>
-__device__ __forceinline__ void load_word(Word<PLANES>& wd, const int* __restrict__ instr,
-                                          const float* __restrict__ vals, int t, int T, int P,
-                                          int lane) {
-  if (t < T) {
-#pragma unroll
-    for (int k = 0; k < PLANES; ++k) wd.w[k] = __ldg(instr + ((size_t)t * PLANES + k) * P + lane);
-    wd.v = __ldg(vals + (size_t)t * P + lane);
+// store v at a when `on` is not 0 (a predicated store, no branch)
+__device__ __forceinline__ void sts_f32_if(unsigned on, unsigned a, float v) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %0, 0;\n\t@q st.shared.f32 [%1], %2;\n\t}" ::"r"(on),
+      "r"(a), "f"(v)
+      : "memory");
+}
+
+template <int LPT>
+__device__ __forceinline__ void lds_words(unsigned a, uint32_t (&out)[LPT]) {
+  if constexpr (LPT == 1) {
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(out[0]) : "r"(a) : "memory");
+  } else if constexpr (LPT == 2) {
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(out[0]), "=r"(out[1])
+                 : "r"(a)
+                 : "memory");
   } else {
 #pragma unroll
-    for (int k = 0; k < PLANES; ++k) wd.w[k] = 0;
-    wd.v = 0.f;
+    for (int i = 0; i < LPT; i += 4)
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(out[i]), "=r"(out[i + 1]), "=r"(out[i + 2]), "=r"(out[i + 3])
+                   : "r"(a + 4 * i)
+                   : "memory");
   }
 }
 
-// x rows of the resident kernel: the whole padded vector, in shared memory
-// (stride bt) or in device memory (stride B), pre-offset to this column.
-struct VectorRows {
-  float* base;
-  int stride;
-  __device__ __forceinline__ float* row(int r) const { return base + (size_t)r * stride; }
-  __device__ __forceinline__ void at_cycle(int) {}
-};
-
-// x rows of the blocked kernel: a ring of `window` rows in shared memory.
-struct RingRows {
-  float* ring;               // ring[slot * bt + c], whole tile
-  float* x;                  // device memory, [n_hbm, B]
-  const float* __restrict__ b;
-  int c, bt, col0, B;
-  int window, stride, cycles_per_block;
-  int base, base_mod, next_boundary;
-
-  __device__ __forceinline__ float* row(int r) const {
-    int s = base_mod + (r - base);
-    if (s >= window) s -= window;
-    return ring + (size_t)s * bt + c;
-  }
-
-  // flush the `rows` rows from `base` on to x; refill=true also loads b of
-  // the row `window` further on into each freed slot
-  __device__ void retire(int rows, bool refill) {
-    const int nthreads = blockDim.x;
-    for (int e = threadIdx.x; e < rows * bt; e += nthreads) {
-      const int r = base + e / bt;
-      const int cc = e % bt;
-      int s = base_mod + (r - base);
-      if (s >= window) s -= window;
-      float* slot = ring + (size_t)s * bt + cc;
-      x[(size_t)r * B + col0 + cc] = *slot;
-      if (refill) *slot = __ldg(b + (size_t)(r + window) * B + col0 + cc);
-    }
-  }
-
-  __device__ __forceinline__ void at_cycle(int t) {
-    if (t != next_boundary) return;  // uniform across the CTA
-    retire(stride, true);
-    base += stride;
-    base_mod += stride;
-    if (base_mod >= window) base_mod -= window;
-    next_boundary += cycles_per_block;
-    __syncthreads();
-  }
-};
-
-template <int PLANES, class Rows>
-__device__ __forceinline__ void exec_cycle(const Word<PLANES>& wd, float& fb, float* rf,
-                                           int rf_stride, const Rows& rows) {
-  int src, rest;
-  if (PLANES == 1) {
-    src = wd.w[0] & SRC_MASK;
-    rest = wd.w[0] >> SRC_BITS;
+// ---------------------------------------------------------------- cp.async
+template <int BYTES>
+__device__ __forceinline__ void cp_async(unsigned dst, const uint32_t* src, bool valid) {
+  if constexpr (BYTES > 16) {
+    cp_async<16>(dst, src, valid);
+    cp_async<BYTES - 16>(dst + 16, src + 4, valid);
   } else {
-    src = wd.w[0];
-    rest = wd.w[PLANES - 1];
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(BYTES), "r"(valid ? BYTES : 0)
+                 : "memory");
   }
-  const int op = rest & OP_MASK;
-  const int ct = (rest >> CTL_SHIFT) & CTL_MASK;
-  float* slot = rf + ((rest >> SLOT_SHIFT) & SLOT_MASK) * rf_stride;
-
-  // psum mux: the slot is read before the store, and the store writes the
-  // old feedback
-  float pv = fb;
-  switch (ct) {
-    case PS_RESET: pv = 0.f; break;
-    case PS_LOAD: pv = *slot; break;
-    case PS_STORE_RESET: *slot = fb; pv = 0.f; break;
-    case PS_SWAP: { const float s = *slot; *slot = fb; pv = s; break; }
-    default: break;
-  }
-  // no contraction into an FMA: the plain PyTorch version rounds the
-  // product and the sum separately, and so does this
-  if (op == OP_EDGE) {
-    pv = __fadd_rn(pv, __fmul_rn(wd.v, *rows.row(src)));
-  } else if (op == OP_FINAL) {
-    float* xr = rows.row(src);  // still holds b[src]
-    *xr = __fmul_rn(__fsub_rn(*xr, pv), wd.v);
-  }
-  fb = pv;
 }
 
-// The cycle loop shared by both kernels: words for the next GROUP cycles
-// load into registers while the current GROUP executes.
-template <int PLANES, class Rows>
-__device__ __forceinline__ void run_stream(const int* __restrict__ instr,
-                                           const float* __restrict__ vals, int T, int P,
-                                           int lane, float* rf, int rf_stride, Rows& rows) {
-  float fb = 0.f;
-  Word<PLANES> cur[GROUP], nxt[GROUP];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------ the stream's words
+// One cycle's words of one thread: PLANES packed words and a value per lane.
+template <int PLANES, int LPT>
+struct Raw {
+  uint32_t w[PLANES][LPT];
+  uint32_t v[LPT];
+};
+
+// The per-warp ring of the instruction stream: RING cycle rows of
+// [PLANES words + 1 value][PP lanes], filled CHUNK rows at a time.
+template <int PLANES, int LPT>
+struct Stream {
+  static constexpr int PP = Lanes<LPT>::PP;
+  static constexpr int ROW = (PLANES + 1) * PP * 4;  // bytes per cycle row
+  static constexpr int SLOT = CHUNK * ROW;           // bytes per chunk
+  const uint32_t* instr;                             // [T, PLANES, P]
+  const uint32_t* vals;                              // [T, P]
+  unsigned ring;  // shared address of this thread's lanes in ring row 0
+  int T, P, t;
+
+  // Cycles past T and lanes past P are copied as zero words.
+  __device__ __forceinline__ void copy_chunk(int chunk, int slot) const {
+    const unsigned dst = ring + slot * SLOT;
+    const bool lane_ok = t * LPT < P;
+    const int c0 = chunk * CHUNK;
+    if (lane_ok && c0 + CHUNK <= T) {  // the whole chunk: no predicates
+      const uint32_t* wi = instr + (size_t)c0 * PLANES * P + t * LPT;
+      const uint32_t* wv = vals + (size_t)c0 * P + t * LPT;
 #pragma unroll
-  for (int k = 0; k < GROUP; ++k) load_word(cur[k], instr, vals, k, T, P, lane);
-  for (int t0 = 0; t0 < T; t0 += GROUP) {
+      for (int u = 0; u < CHUNK; ++u) {
 #pragma unroll
-    for (int k = 0; k < GROUP; ++k) load_word(nxt[k], instr, vals, t0 + GROUP + k, T, P, lane);
-#pragma unroll
-    for (int k = 0; k < GROUP; ++k) {
-      const int t = t0 + k;
-      if (t < T) {  // uniform across the CTA
-        rows.at_cycle(t);
-        exec_cycle<PLANES>(cur[k], fb, rf, rf_stride, rows);
-        __syncthreads();
+        for (int j = 0; j < PLANES; ++j)
+          cp_async<4 * LPT>(dst + u * ROW + j * PP * 4, wi + (u * PLANES + j) * P, true);
+        cp_async<4 * LPT>(dst + u * ROW + PLANES * PP * 4, wv + u * P, true);
       }
+      return;
     }
 #pragma unroll
-    for (int k = 0; k < GROUP; ++k) cur[k] = nxt[k];
+    for (int u = 0; u < CHUNK; ++u) {
+      const int c = c0 + u;
+      const bool ok = lane_ok && c < T;
+      const size_t ci = ok ? (size_t)c : 0;
+      const int li = ok ? t * LPT : 0;
+#pragma unroll
+      for (int j = 0; j < PLANES; ++j)
+        cp_async<4 * LPT>(dst + u * ROW + j * PP * 4, instr + (ci * PLANES + j) * P + li, ok);
+      cp_async<4 * LPT>(dst + u * ROW + PLANES * PP * 4, vals + ci * P + li, ok);
+    }
+  }
+
+  // the words of the cycle row at shared address `row` (this thread's lanes)
+  __device__ __forceinline__ void load(unsigned row, Raw<PLANES, LPT>& r) const {
+#pragma unroll
+    for (int j = 0; j < PLANES; ++j) lds_words<LPT>(row + j * PP * 4, r.w[j]);
+    lds_words<LPT>(row + PLANES * PP * 4, r.v);
+  }
+};
+
+// ------------------------------------------------------------ x rows
+// The whole padded vector of one column in shared memory (resident), or a
+// ring of rows (blocked): a word names the row at xs + 4 * (src & mask).
+struct SmemRows {
+  using Addr = unsigned;
+  unsigned xs;  // shared address of row 0
+  unsigned mask;
+  __device__ __forceinline__ Addr addr(uint32_t src) const { return xs + ((src & mask) << 2); }
+  __device__ __forceinline__ float load(Addr a) const { return lds_f32(a); }
+  __device__ __forceinline__ void store_if(unsigned on, Addr a, float v) const {
+    sts_f32_if(on, a, v);
+  }
+};
+
+// The whole padded vector of one column in device memory, row stride B.
+struct GlobalRows {
+  using Addr = float*;
+  float* x;  // pre-offset to the column
+  int B;
+  unsigned mask;
+  __device__ __forceinline__ Addr addr(uint32_t src) const { return x + (size_t)(src & mask) * B; }
+  __device__ __forceinline__ float load(Addr a) const { return *a; }
+  __device__ __forceinline__ void store_if(unsigned on, Addr a, float v) const {
+    if (on) *a = v;
+  }
+};
+
+// One cycle's decoded lanes of one thread.
+template <int LPT, class Rows>
+struct Dec {
+  typename Rows::Addr x[LPT];  // the row the word names
+  unsigned rf[LPT];            // shared address of the psum slot the word names
+  float v[LPT];
+  unsigned op[LPT];  // opcode
+  unsigned f[LPT];   // F_* flags of the psum control
+};
+
+template <int PLANES, int LPT, class Rows>
+__device__ __forceinline__ void decode(const Raw<PLANES, LPT>& r, Dec<LPT, Rows>& d,
+                                       const Rows& rows, unsigned rf_t) {
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    const uint32_t w0 = r.w[0][k];
+    // the upper field [op : 2][ctl : 3][slot : 8]; bit 31 of a word is 0
+    const uint32_t rest = PLANES == 1 ? (w0 >> SRC_BITS) : r.w[PLANES - 1][k];
+    d.x[k] = rows.addr(w0);
+    d.rf[k] = rf_t + (rest >> 5) * (Lanes<LPT>::PP * 4) + k * 128;
+    d.v[k] = __uint_as_float(r.v[k]);
+    d.op[k] = rest & 3u;
+    d.f[k] = CT_LUT >> (rest & 0x1Cu);
   }
 }
 
-// rf: num_slots floats per thread, slot-major
-__device__ __forceinline__ float* init_rf(float* smem, int num_slots) {
-  for (int s = 0; s < num_slots; ++s) smem[s * blockDim.x + threadIdx.x] = 0.f;
-  return smem + threadIdx.x;
+struct NoBoundary {
+  __device__ __forceinline__ void at_chunk(int) {}
+};
+
+// The cycle loop shared by both kernels.  Chunk cc's words sit in ring slot
+// cc % (LEAD + 1); at the top of chunk cc the copy of chunk cc + LEAD is
+// issued into the slot chunk cc - 1 held, and the wait leaves LEAD - 1
+// groups in flight, so chunks <= cc + 1 have landed (cycle t loads the
+// words of t + 3).  Chunks past the stream are copied too, as zero words
+// (NOPs naming row 0 and slot 0), so the look-ahead never decodes a word
+// that was not written.  `hook.at_chunk` runs the blocked kernel's
+// boundaries.
+//
+// Cycle t holds the decoded lanes of t and t + 1 and the words of t + 2:
+// it reads its x rows first (the chain), stores its psum slot and reads
+// the slot of t + 1 (so that load has a whole cycle to return), loads the
+// words of t + 3 and decodes those of t + 2, then computes, stores x and
+// ends in __syncwarp().
+template <int PLANES, int LPT, class Rows, class Hook>
+__device__ __forceinline__ void run_stream(const Stream<PLANES, LPT>& st, unsigned rf_t,
+                                           const Rows& rows, int nch, Hook& hook) {
+  using L = Lanes<LPT>;
+  using S = Stream<PLANES, LPT>;
+#pragma unroll 1
+  for (int k = 0; k < L::LEAD; ++k) {
+    st.copy_chunk(k, k);
+    cp_async_commit();
+  }
+  cp_async_wait<L::LEAD - 1>();
+  __syncwarp();  // also publishes the x set-up copies of every thread
+
+  float fb[LPT], s[LPT];
+  Raw<PLANES, LPT> raw;  // the words of t + 2
+  Dec<LPT, Rows> cur, nxt;
+  st.load(st.ring, raw);
+  decode<PLANES, LPT>(raw, cur, rows, rf_t);
+  st.load(st.ring + S::ROW, raw);
+  decode<PLANES, LPT>(raw, nxt, rows, rf_t);
+  st.load(st.ring + 2 * S::ROW, raw);
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    fb[k] = 0.f;
+    s[k] = lds_f32(cur.rf[k]);
+  }
+
+  int slot = 0;  // ring slot of chunk cc
+#pragma unroll 1
+  for (int cc = 0; cc < nch; ++cc) {
+    const int prev = slot == 0 ? L::LEAD : slot - 1;
+    const int next = slot == L::LEAD ? 0 : slot + 1;
+    st.copy_chunk(cc + L::LEAD, prev);
+    cp_async_commit();
+    cp_async_wait<L::LEAD - 1>();
+    hook.at_chunk(cc);
+    const unsigned here = st.ring + slot * S::SLOT;
+    const unsigned there = st.ring + next * S::SLOT;
+#pragma unroll
+    for (int u = 0; u < CHUNK; ++u) {
+      // the chain: this cycle's x rows, read after the last __syncwarp
+      float xv[LPT], pv[LPT];
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) xv[k] = rows.load(cur.x[k]);
+      // off the chain: the psum mux, this cycle's slot store, the slot of
+      // t + 1, the words of t + 3 and the decode of t + 2
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        pv[k] = (cur.f[k] & F_SLOT) ? s[k] : fb[k];
+        pv[k] = (cur.f[k] & F_ZERO) ? 0.f : pv[k];
+        sts_f32_if(cur.f[k] & F_STORE, cur.rf[k], fb[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) s[k] = lds_f32(nxt.rf[k]);
+      Dec<LPT, Rows> dn;
+      decode<PLANES, LPT>(raw, dn, rows, rf_t);
+      st.load(u + 3 < CHUNK ? here + (u + 3) * S::ROW : there + (u + 3 - CHUNK) * S::ROW, raw);
+      // no contraction into an FMA: the plain PyTorch version rounds the
+      // product and the sum separately, and so does this
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const float e = __fadd_rn(pv[k], __fmul_rn(cur.v[k], xv[k]));
+        const float f = __fmul_rn(__fsub_rn(xv[k], pv[k]), cur.v[k]);
+        rows.store_if(cur.op[k] == OP_FINAL, cur.x[k], f);
+        fb[k] = cur.op[k] == OP_EDGE ? e : pv[k];
+      }
+      cur = nxt;
+      nxt = dn;
+      __syncwarp();
+    }
+    slot = next;
+  }
 }
 
-template <int PLANES>
-__global__ void __launch_bounds__(MAX_THREADS)
-resident_kernel(const int* __restrict__ instr, const float* __restrict__ vals,
+// Shared memory of a CTA of W warps, in 4-byte words: per warp the psum
+// register file [num_slots][PP] and the stream ring [RING][(PLANES + 1) * PP]
+// (`fixed` words, 16-byte aligned), then per warp its `x_words` x rows.
+template <int PLANES, int LPT>
+struct Layout {
+  static constexpr int RING_WORDS = Lanes<LPT>::RING * (PLANES + 1) * Lanes<LPT>::PP;
+  static __host__ __device__ int rf_words(int num_slots) { return num_slots * Lanes<LPT>::PP; }
+  static __host__ __device__ int fixed(int num_slots) { return rf_words(num_slots) + RING_WORDS; }
+};
+
+// zero this thread's lanes of the psum file; their shared address
+__device__ __forceinline__ unsigned zero_rf(float* rf, int words, int t) {
+  for (int e = t; e < words; e += 32) rf[e] = 0.f;
+  return saddr(rf + t);
+}
+
+template <int PLANES, int LPT, bool X_IN_SMEM>
+__global__ void __launch_bounds__(32 * Lanes<LPT>::MAX_WARPS)
+resident_kernel(const uint32_t* __restrict__ instr, const uint32_t* __restrict__ vals,
                 const float* __restrict__ b, float* x, int T, int P, int n_rows, int B,
-                int num_slots, int bt, int x_in_smem) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x % P;
-  const int c = threadIdx.x / P;
-  const int col0 = blockIdx.x * bt;
-  float* rf = init_rf(smem, num_slots);
-  float* xs = smem + (size_t)num_slots * blockDim.x;
+                int num_slots) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  using Lay = Layout<PLANES, LPT>;
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int col = blockIdx.x * nw + w;
+  const int fixed = Lay::fixed(num_slots), rfw = Lay::rf_words(num_slots);
+  uint32_t* base = smem + (size_t)w * fixed;
+  const unsigned rf_t = zero_rf(reinterpret_cast<float*>(base), rfw, t);
+  const Stream<PLANES, LPT> st{instr, vals, saddr(base + rfw) + 4 * LPT * t, T, P, t};
+  const unsigned mask = PLANES == 1 ? SRC_MASK : 0xffffffffu;
+  const int nch = (T + CHUNK - 1) / CHUNK;
+  NoBoundary hook;
 
-  // x starts out as b
-  for (int e = threadIdx.x; e < n_rows * bt; e += blockDim.x) {
-    const size_t g = (size_t)(e / bt) * B + col0 + e % bt;
-    if (x_in_smem) xs[e] = __ldg(b + g); else x[g] = __ldg(b + g);
-  }
-  __syncthreads();
-
-  VectorRows rows{x_in_smem ? xs + c : x + col0 + c, x_in_smem ? bt : B};
-  run_stream<PLANES>(instr, vals, T, P, lane, rf, blockDim.x, rows);
-
-  if (x_in_smem) {
-    for (int e = threadIdx.x; e < n_rows * bt; e += blockDim.x)
-      x[(size_t)(e / bt) * B + col0 + e % bt] = xs[e];
+  if constexpr (X_IN_SMEM) {
+    float* xs = reinterpret_cast<float*>(smem + (size_t)nw * fixed + (size_t)w * n_rows);
+    // x starts out as b
+    for (int r = t; r < n_rows; r += 32)
+      cp_async<4>(saddr(xs + r), reinterpret_cast<const uint32_t*>(b + (size_t)r * B + col),
+                  true);
+    cp_async_commit();
+    run_stream<PLANES, LPT>(st, rf_t, SmemRows{saddr(xs), mask}, nch, hook);
+    __syncwarp();
+    for (int r = t; r < n_rows; r += 32) x[(size_t)r * B + col] = xs[r];
+  } else {
+#pragma unroll 8
+    for (int r = t; r < n_rows; r += 32) x[(size_t)r * B + col] = b[(size_t)r * B + col];
+    run_stream<PLANES, LPT>(st, rf_t, GlobalRows{x + col, B, mask}, nch, hook);
   }
 }
 
-template <int PLANES>
-__global__ void __launch_bounds__(MAX_THREADS)
-blocked_kernel(const int* __restrict__ instr, const float* __restrict__ vals,
+// The blocked kernel's boundaries, at the top of the chunk that starts a
+// cycle block.  `bstage` holds b of the rows entering at the next boundary.
+struct Boundaries {
+  float* ring;    // ring_rows x rows
+  float* bstage;  // stride rows
+  float* x;       // device memory, pre-offset to the column
+  const float* b;
+  int B, window, stride, blk_chunks, nblocks, t;
+  unsigned mask;  // ring_rows - 1
+  bool wait_all;  // a block is shorter than the stream's lead
+  int g = 0;      // blocks begun
+
+  // b of the rows entering at boundary g + 1, by cp.async
+  __device__ __forceinline__ void prefetch(int g1) const {
+    const int first = (g1 - 1) * stride + window;
+    for (int e = t; e < stride; e += 32)
+      cp_async<4>(saddr(bstage + e),
+                  reinterpret_cast<const uint32_t*>(b + (size_t)(first + e) * B), true);
+  }
+
+  __device__ __forceinline__ void at_chunk(int cc) {
+    if (cc != g * blk_chunks) return;  // uniform across the warp
+    if (g > 0) {
+      if (wait_all) asm volatile("cp.async.wait_all;\n" ::: "memory");
+      const int base = (g - 1) * stride;
+      for (int e = t; e < stride; e += 32) x[(size_t)(base + e) * B] = ring[(base + e) & mask];
+      __syncwarp();  // every flush reads its slot before any refill writes
+      for (int e = t; e < stride; e += 32) ring[(base + window + e) & mask] = bstage[e];
+      __syncwarp();
+    }
+    ++g;
+    if (g < nblocks) prefetch(g);
+  }
+};
+
+template <int PLANES, int LPT>
+__global__ void __launch_bounds__(32 * Lanes<LPT>::MAX_WARPS)
+blocked_kernel(const uint32_t* __restrict__ instr, const uint32_t* __restrict__ vals,
                const float* __restrict__ b, float* x, int T, int P, int B, int num_slots,
-               int bt, int window, int stride, int cycles_per_block) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x % P;
-  const int c = threadIdx.x / P;
-  const int col0 = blockIdx.x * bt;
-  float* rf = init_rf(smem, num_slots);
-  float* ring = smem + (size_t)num_slots * blockDim.x;
+               int window, int stride, int cycles_per_block, int ring_rows) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  using Lay = Layout<PLANES, LPT>;
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int col = blockIdx.x * nw + w;
+  const int fixed = Lay::fixed(num_slots), rfw = Lay::rf_words(num_slots);
+  uint32_t* base = smem + (size_t)w * fixed;
+  const unsigned rf_t = zero_rf(reinterpret_cast<float*>(base), rfw, t);
+  const Stream<PLANES, LPT> st{instr, vals, saddr(base + rfw) + 4 * LPT * t, T, P, t};
+  float* ring = reinterpret_cast<float*>(smem + (size_t)nw * fixed +
+                                         (size_t)w * (ring_rows + stride));
+  float* bstage = ring + ring_rows;
+  const unsigned mask = (unsigned)(ring_rows - 1) & (PLANES == 1 ? SRC_MASK : 0xffffffffu);
+  const int blk_chunks = cycles_per_block / CHUNK;
+  const int nblocks = T / cycles_per_block;
 
   // window 0 holds b of rows [0, window)
-  for (int e = threadIdx.x; e < window * bt; e += blockDim.x)
-    ring[e] = __ldg(b + (size_t)(e / bt) * B + col0 + e % bt);
-  __syncthreads();
-
-  RingRows rows{ring, x, b, c, bt, col0, B, window, stride, cycles_per_block,
-                0, 0, cycles_per_block};
-  run_stream<PLANES>(instr, vals, T, P, lane, rf, blockDim.x, rows);
+  for (int r = t; r < window; r += 32)
+    cp_async<4>(saddr(ring + r), reinterpret_cast<const uint32_t*>(b + (size_t)r * B + col),
+                true);
+  Boundaries hook{ring, bstage, x + col, b + col, B, window, stride, blk_chunks, nblocks, t,
+                  (unsigned)(ring_rows - 1), blk_chunks < Lanes<LPT>::LEAD};
+  hook.at_chunk(0);  // block 0 begins: b of boundary 1 in flight
+  cp_async_commit();
+  run_stream<PLANES, LPT>(st, rf_t, SmemRows{saddr(ring), mask}, T / CHUNK, hook);
 
   // last window: every row still in the ring is final
-  rows.retire(window, false);
+  __syncwarp();
+  const int last = (nblocks - 1) * stride;
+  for (int e = t; e < window; e += 32)
+    x[(size_t)(last + e) * B + col] = ring[(last + e) & (ring_rows - 1)];
 }
 
-size_t rf_bytes(int num_slots, int threads) { return (size_t)num_slots * threads * sizeof(float); }
+int lanes_per_thread(int P) { return P <= 32 ? 1 : P <= 64 ? 2 : P <= 128 ? 4 : 8; }
+
+template <int PLANES, int LPT>
+size_t smem_bytes(int num_slots, int x_words, int bt) {
+  return ((size_t)Layout<PLANES, LPT>::fixed(num_slots) + x_words) * 4 * bt;
+}
 
 template <class K>
 cudaError_t launch_prep(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
+
+template <int PLANES, int LPT, bool XS>
+cudaError_t resident(const void* instr, const void* vals, const void* b, void* x, int T, int P,
+                     int n_rows, int B, int num_slots, int bt, cudaStream_t stream) {
+  const size_t smem = smem_bytes<PLANES, LPT>(num_slots, XS ? n_rows : 0, bt);
+  auto kernel = resident_kernel<PLANES, LPT, XS>;
+  cudaError_t err = launch_prep(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B / bt, 32 * bt, smem, stream>>>((const uint32_t*)instr, (const uint32_t*)vals,
+                                            (const float*)b, (float*)x, T, P, n_rows, B,
+                                            num_slots);
+  return cudaGetLastError();
+}
+
+template <int PLANES, int LPT>
+cudaError_t blocked(const void* instr, const void* vals, const void* b, void* x, int T, int P,
+                    int B, int num_slots, int bt, int window, int stride, int cycles_per_block,
+                    int ring_rows, cudaStream_t stream) {
+  const size_t smem = smem_bytes<PLANES, LPT>(num_slots, ring_rows + stride, bt);
+  auto kernel = blocked_kernel<PLANES, LPT>;
+  cudaError_t err = launch_prep(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B / bt, 32 * bt, smem, stream>>>((const uint32_t*)instr, (const uint32_t*)vals,
+                                            (const float*)b, (float*)x, T, P, B, num_slots,
+                                            window, stride, cycles_per_block, ring_rows);
+  return cudaGetLastError();
+}
+
+#define SPTRSV_DISPATCH(PLANES_, LPT_, CALL)                            \
+  switch ((PLANES_) * 16 + (LPT_)) {                                    \
+    case 17: return (int)CALL(1, 1);                                    \
+    case 18: return (int)CALL(1, 2);                                    \
+    case 20: return (int)CALL(1, 4);                                    \
+    case 24: return (int)CALL(1, 8);                                    \
+    case 33: return (int)CALL(2, 1);                                    \
+    case 34: return (int)CALL(2, 2);                                    \
+    case 36: return (int)CALL(2, 4);                                    \
+    case 40: return (int)CALL(2, 8);                                    \
+    default: return (int)cudaErrorInvalidValue;                         \
+  }
 
 }  // namespace
 
@@ -279,53 +551,31 @@ extern "C" {
 const char* sptrsv_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // instr [T, planes, P] int32, vals [T, P] f32, b and x [n_rows, B] f32;
-// one CTA of P*bt threads per bt columns.
+// one CTA of bt warps per bt columns, one warp per column.
 int sptrsv_resident(const void* instr, const void* vals, const void* b, void* x, int T,
                     int planes, int P, int n_rows, int B, int num_slots, int bt, int x_in_smem,
                     void* stream) {
-  const int threads = P * bt;
-  const size_t smem = rf_bytes(num_slots, threads) +
-                      (x_in_smem ? (size_t)n_rows * bt * sizeof(float) : 0);
-  const dim3 grid(B / bt);
-  cudaError_t err;
-  if (planes == 1) {
-    err = launch_prep(resident_kernel<1>, smem);
-    if (err != cudaSuccess) return (int)err;
-    resident_kernel<1><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        (const int*)instr, (const float*)vals, (const float*)b, (float*)x, T, P, n_rows, B,
-        num_slots, bt, x_in_smem);
-  } else {
-    err = launch_prep(resident_kernel<2>, smem);
-    if (err != cudaSuccess) return (int)err;
-    resident_kernel<2><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        (const int*)instr, (const float*)vals, (const float*)b, (float*)x, T, P, n_rows, B,
-        num_slots, bt, x_in_smem);
-  }
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int lpt = lanes_per_thread(P);
+#define SPTRSV_RESIDENT(PL, LP)                                                         \
+  (x_in_smem ? resident<PL, LP, true>(instr, vals, b, x, T, P, n_rows, B, num_slots, bt, s) \
+             : resident<PL, LP, false>(instr, vals, b, x, T, P, n_rows, B, num_slots, bt, s))
+  SPTRSV_DISPATCH(planes, lpt, SPTRSV_RESIDENT)
+#undef SPTRSV_RESIDENT
 }
 
-// b and x [n_hbm, B] f32 with n_hbm = (T / cycles_per_block - 1) * stride + window.
+// b and x [n_hbm, B] f32 with n_hbm = (T / cycles_per_block - 1) * stride + window;
+// cycles_per_block a multiple of CHUNK; ring_rows is the power of two >= window.
 int sptrsv_blocked(const void* instr, const void* vals, const void* b, void* x, int T,
                    int planes, int P, int B, int num_slots, int bt, int window, int stride,
-                   int cycles_per_block, void* stream) {
-  const int threads = P * bt;
-  const size_t smem = rf_bytes(num_slots, threads) + (size_t)window * bt * sizeof(float);
-  const dim3 grid(B / bt);
-  cudaError_t err;
-  if (planes == 1) {
-    err = launch_prep(blocked_kernel<1>, smem);
-    if (err != cudaSuccess) return (int)err;
-    blocked_kernel<1><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        (const int*)instr, (const float*)vals, (const float*)b, (float*)x, T, P, B, num_slots,
-        bt, window, stride, cycles_per_block);
-  } else {
-    err = launch_prep(blocked_kernel<2>, smem);
-    if (err != cudaSuccess) return (int)err;
-    blocked_kernel<2><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        (const int*)instr, (const float*)vals, (const float*)b, (float*)x, T, P, B, num_slots,
-        bt, window, stride, cycles_per_block);
-  }
-  return (int)cudaGetLastError();
+                   int cycles_per_block, int ring_rows, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int lpt = lanes_per_thread(P);
+#define SPTRSV_BLOCKED(PL, LP)                                                            \
+  blocked<PL, LP>(instr, vals, b, x, T, P, B, num_slots, bt, window, stride, cycles_per_block, \
+                  ring_rows, s)
+  SPTRSV_DISPATCH(planes, lpt, SPTRSV_BLOCKED)
+#undef SPTRSV_BLOCKED
 }
 
 }  // extern "C"

@@ -12,9 +12,12 @@ design), each beside a plain PyTorch version of the same algorithm:
     cycle block, with retired rows flushed to device memory.
     Plain version: `sptrsv_blocked_plain` (the same window sweep).
 
-What bounds them on an H100: the cycle-serial dependency chain, one CTA
-barrier per emitted cycle; the bytes and flops of a solve are far below it
-(see the source note).
+What bounds them on an H100: the cycle-serial dependency chain, (emitted
+cycles) x (latency of one cycle); the bytes and flops of a solve are far
+below it (see the source note).  One warp runs one RHS column: thread t
+owns ``lanes_per_thread(P)`` adjacent lanes, a cycle ends in a
+``__syncwarp()``, and a CTA holds ``cols_per_cta`` independent warps.
+`check_kernel_limits` states what a launch may ask for.
 
 Both kernels keep b off the chain by seeding x with b: a FINAL lane reads
 b[src] from its own, not yet final, row.  The plain versions do the same,
@@ -47,18 +50,100 @@ from repro_torch.kernels.common import build_library
 
 __all__ = [
     "build",
+    "check_kernel_limits",
+    "lanes_per_thread",
+    "max_cols_per_cta",
+    "ring_rows",
+    "smem_bytes_per_column",
+    "stream_ring_cycles",
     "sptrsv_cuda",
     "sptrsv_cuda_blocked",
     "sptrsv_plain",
     "sptrsv_blocked_plain",
-    "MAX_THREADS_PER_CTA",
-    "PREFETCH_CYCLES",
+    "MAX_LANES",
+    "MAX_SMEM_BYTES",
+    "STREAM_CHUNK",
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sptrsv.cu"
-MAX_THREADS_PER_CTA = 256  # P * cols_per_cta; csrc/sptrsv.cu MAX_THREADS
-PREFETCH_CYCLES = 16       # csrc/sptrsv.cu GROUP
-MAX_SLOTS = 256            # the packed word's 8-bit slot field
+MAX_LANES = 256         # P: eight lanes per thread of one warp
+MAX_SLOTS = 256         # the packed word's 8-bit slot field
+MAX_SMEM_BYTES = 232448  # shared memory a Hopper CTA can use (227 KB)
+STREAM_CHUNK = 8        # csrc/sptrsv.cu CHUNK: cycles per cp.async group
+_ALIGN = 16             # bytes: the stream's cp.async copies
+
+
+# ---------------------------------------------------------------------------
+# the kernels' shape rules (csrc/sptrsv.cu `Lanes`, `Layout`), pure
+# ---------------------------------------------------------------------------
+def lanes_per_thread(p: int) -> int:
+    """Lanes each thread of a column's warp owns: 1, 2, 4, 8 for P up to
+    32, 64, 128, 256."""
+    return next((k for k in (1, 2, 4) if p <= 32 * k), 8)
+
+
+def max_cols_per_cta(p: int) -> int:
+    """Columns (warps) a CTA may hold: 8 up to 64 lanes, 4 at 128, 2 at
+    256, so that a thread may use 255 registers (the cycle loop keeps three
+    cycles of decoded lanes in flight)."""
+    return min(8, 16 // lanes_per_thread(p))
+
+
+def stream_ring_cycles(p: int) -> int:
+    """Cycles of instruction words the per-warp stream ring holds: LEAD + 1
+    chunks of `STREAM_CHUNK`, LEAD = 4 chunks in flight up to 64 lanes, 2
+    above."""
+    lead = 4 if lanes_per_thread(p) <= 2 else 2
+    return (lead + 1) * STREAM_CHUNK
+
+
+def ring_rows(window: int) -> int:
+    """x rows of the blocked kernel's ring: the power of two >= ``window``,
+    so a row's slot is ``row & (ring_rows - 1)``."""
+    return 1 << max(0, int(window) - 1).bit_length()
+
+
+def smem_bytes_per_column(p: int, planes: int, num_slots: int, x_words: int = 0) -> int:
+    """Shared memory of one column's warp: the psum register file
+    ``[num_slots][32 * lanes]``, the stream ring ``[ring cycles][planes +
+    1][32 * lanes]`` and ``x_words`` x rows."""
+    row = 32 * lanes_per_thread(p)
+    return 4 * (num_slots * row + stream_ring_cycles(p) * (planes + 1) * row + x_words)
+
+
+def check_kernel_limits(p: int, planes: int, num_slots: int, cols_per_cta: int,
+                        cycles_per_block: int | None = None) -> None:
+    """Raise ``ValueError`` for a launch the CUDA kernels cannot take.
+
+    Pure (no device, no library): the CUDA branch of each wrapper calls it
+    before it launches.  1 <= P <= `MAX_LANES`, and P a multiple of its
+    lanes per thread (any P up to 32, even P up to 64, ...: the stream's
+    copies are 4 x lanes bytes); planes 1 or 2; 1 <= num_slots <= 256;
+    1 <= cols_per_cta <= `max_cols_per_cta` (8 warps at most); the psum
+    register files and stream rings of the CTA's columns within
+    `MAX_SMEM_BYTES`; for the blocked kernel, cycles_per_block >= 1, of any
+    length (`sptrsv_cuda_blocked` pads a block to whole stream chunks).
+    The x rows a CTA keeps in shared memory are the
+    placement's budget (`ops.state_bytes`): a launch whose x does not fit
+    is refused by the card and raises ``RuntimeError``.
+    """
+    if not 1 <= p <= MAX_LANES or p % lanes_per_thread(p):
+        raise ValueError(f"the kernels take 1 <= P <= {MAX_LANES} lanes, above 32 a "
+                         f"multiple of the lanes per thread (2, 4, 8); got P={p}")
+    if planes not in (1, 2):
+        raise ValueError(f"the kernels take 1 or 2 word planes, got {planes}")
+    if not 1 <= num_slots <= MAX_SLOTS:
+        raise ValueError(f"num_slots must be in [1, {MAX_SLOTS}], got {num_slots}")
+    if not 1 <= cols_per_cta <= max_cols_per_cta(p):
+        raise ValueError(f"cols_per_cta={cols_per_cta}: a CTA holds 1 to "
+                         f"{max_cols_per_cta(p)} columns at P={p}")
+    need = cols_per_cta * smem_bytes_per_column(p, planes, num_slots)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{cols_per_cta} columns need {need} bytes of shared memory for "
+                         f"their psum files and stream rings, over {MAX_SMEM_BYTES}")
+    if cycles_per_block is not None and cycles_per_block < 1:
+        raise ValueError(f"the blocked kernel takes cycles_per_block >= 1, "
+                         f"got {cycles_per_block}")
 
 _LIB: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -75,7 +160,7 @@ def build() -> ctypes.CDLL:
     lib.sptrsv_error_string.restype = ctypes.c_char_p
     lib.sptrsv_resident.argtypes = [_P] * 4 + [_I] * 8 + [_P]
     lib.sptrsv_resident.restype = _I
-    lib.sptrsv_blocked.argtypes = [_P] * 4 + [_I] * 9 + [_P]
+    lib.sptrsv_blocked.argtypes = [_P] * 4 + [_I] * 10 + [_P]
     lib.sptrsv_blocked.restype = _I
     _LIB = lib
     return lib
@@ -104,17 +189,18 @@ def _check_inputs(instr, values, b, num_slots: int) -> None:
         raise ValueError(f"num_slots must be in [1, {MAX_SLOTS}], got {num_slots}")
 
 
-def _check_cuda(instr, b, cols_per_cta: int) -> None:
+def _check_cuda(instr, values, b, num_slots: int, cols_per_cta: int,
+                cycles_per_block: int | None = None) -> None:
     if b.device.type != "cuda":
         raise ValueError(f"the SpTRSV kernels run on CUDA or CPU tensors, "
                          f"got {b.device}")
-    p, nb = instr.shape[2], b.shape[1]
-    if cols_per_cta < 1 or nb % cols_per_cta:
+    _, planes, p = instr.shape
+    check_kernel_limits(p, planes, num_slots, cols_per_cta, cycles_per_block)
+    if b.shape[1] % cols_per_cta:
         raise ValueError(f"cols_per_cta={cols_per_cta} must divide the "
-                         f"{nb} RHS columns")
-    if p * cols_per_cta > MAX_THREADS_PER_CTA:
-        raise ValueError(f"{p} lanes x {cols_per_cta} columns exceeds "
-                         f"{MAX_THREADS_PER_CTA} threads per CTA")
+                         f"{b.shape[1]} RHS columns")
+    if instr.data_ptr() % _ALIGN or values.data_ptr() % _ALIGN:
+        raise ValueError(f"instr and values must start on a {_ALIGN}-byte boundary")
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -180,17 +266,20 @@ def sptrsv_blocked_plain(instr, values, b, *, window: int, stride: int,
                          cycles_per_block: int, num_slots: int):
     """Plain PyTorch version of `sptrsv_cuda_blocked` (any device).
 
-    The same window sweep: row r lives in ring slot ``r % window``; at each
-    block boundary the ``stride`` oldest rows retire to ``x`` and their
-    slots take b of the rows entering the window.
+    The same window sweep over the same ring: row r lives in ring slot
+    ``r & (ring_rows(window) - 1)``; at each block boundary the ``stride``
+    oldest rows retire to ``x``, and then the rows entering the window take
+    their slots with b.
     """
     _check_inputs(instr, values, b, num_slots)
     _check_sweep(instr, b, window, stride, cycles_per_block)
     t_pad, _, p = instr.shape
     op, src, ct, sl = _decode(instr)
-    slot = src % window
+    rows_in_ring = ring_rows(window)
+    mask = rows_in_ring - 1
+    slot = src & mask
     x = torch.empty_like(b)
-    ring = b.new_zeros(window + 1, b.shape[1])  # row `window`: the dummy
+    ring = b.new_zeros(rows_in_ring + 1, b.shape[1])  # last row: the dummy
     ring[:window] = b[:window]
     fb = b.new_zeros(p, b.shape[1])
     rf = b.new_zeros(p, num_slots, b.shape[1])
@@ -198,14 +287,14 @@ def sptrsv_blocked_plain(instr, values, b, *, window: int, stride: int,
     for g in range(t_pad // cycles_per_block):
         if g > 0:
             rows = torch.arange((g - 1) * stride, g * stride, device=b.device)
-            x[rows] = ring[rows % window]
-            ring[rows % window] = b[rows + window]
+            x[rows] = ring[rows & mask]
+            ring[(rows + window) & mask] = b[rows + window]
         for t in range(g * cycles_per_block, (g + 1) * cycles_per_block):
             fb = _exec_cycle(op[t], slot[t], ct[t], sl[t], values[t], ring, fb,
-                             rf, lanes, window)
+                             rf, lanes, rows_in_ring)
     last = (t_pad // cycles_per_block - 1) * stride
     rows = torch.arange(last, last + window, device=b.device)
-    x[rows] = ring[rows % window]
+    x[rows] = ring[rows & mask]
     return x
 
 
@@ -222,6 +311,22 @@ def _check_sweep(instr, b, window, stride, cycles_per_block) -> None:
         raise ValueError(f"b rows {b.shape[0]} != window sweep {n_hbm}")
 
 
+def _pad_blocks(instr, values, cycles_per_block: int):
+    """``(instr, values, cycles)``: each cycle block of the stream padded at
+    its end with NOP cycles to ``cycles``, a multiple of `STREAM_CHUNK`.  A
+    NOP cycle (all-zero words and values) keeps every lane's feedback and
+    psum slots and writes no row, so the solve and its rounding are
+    unchanged."""
+    t, planes, p = instr.shape
+    nb = t // cycles_per_block
+    cycles = -(-cycles_per_block // STREAM_CHUNK) * STREAM_CHUNK
+    wi = instr.new_zeros((nb, cycles, planes, p))
+    wi[:, :cycles_per_block] = instr.view(nb, cycles_per_block, planes, p)
+    wv = values.new_zeros((nb, cycles, p))
+    wv[:, :cycles_per_block] = values.view(nb, cycles_per_block, p)
+    return wi.view(nb * cycles, planes, p), wv.view(nb * cycles, p), cycles
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -233,15 +338,20 @@ def sptrsv_cuda(instr, values, b, *, num_slots: int, x_in_smem: bool = True,
                 cols_per_cta: int = 1):
     """Resident solve: ``b[n + 1, B] -> x[n + 1, B]`` (replaces ``sptrsv_pallas``).
 
-    ``x_in_smem`` keeps each CTA's x columns in shared memory (the caller
-    checks that ``(n + 1) * cols_per_cta`` rows plus the psum register
-    file fit, see `ops.state_bytes`); otherwise x stays in device memory.
-    CPU tensors go to `sptrsv_plain`.
+    One warp per column, ``cols_per_cta`` columns per CTA.  ``x_in_smem``
+    keeps each column's x in shared memory (the caller checks that
+    ``n + 1`` rows per column fit beside the psum file and stream ring, see
+    `ops.state_bytes`); otherwise x stays in device memory.  Every word
+    must name a row of ``b`` and one of ``num_slots`` psum slots, NOP words
+    included (the kernel loads both for every lane), as `sptrsv_plain`
+    also requires, and carry no bit past its packed fields
+    (`ops._check_stream` checks staged streams).  CPU tensors go to
+    `sptrsv_plain`.
     """
     _check_inputs(instr, values, b, num_slots)
     if b.device.type == "cpu":
         return sptrsv_plain(instr, values, b, num_slots=num_slots)
-    _check_cuda(instr, b, cols_per_cta)
+    _check_cuda(instr, values, b, num_slots, cols_per_cta)
     lib = build()
     t, planes, p = instr.shape
     x = torch.empty_like(b)
@@ -263,8 +373,14 @@ def sptrsv_cuda_blocked(instr, values, b, *, window: int, stride: int,
 
     ``n_hbm = (T / cycles_per_block - 1) * stride + window``; the caller
     has checked that cycle block g touches only rows ``[g*stride,
-    g*stride + window)`` (`ops.plan_window`).  CPU tensors go to
-    `sptrsv_blocked_plain`.
+    g*stride + window)`` (`ops.plan_window`).  The words carry row indices,
+    as for `sptrsv_blocked_plain` and the TPU kernel: the kernel keeps row
+    r in ring slot ``r & (ring_rows(window) - 1)`` and masks each word's
+    src field itself.  ``cycles_per_block`` may be any positive divisor of
+    T: the kernel starts a block only at a `STREAM_CHUNK`, so a block of
+    another length is padded with NOP cycles first (`_pad_blocks`, one
+    copy of the stream on the card).  One warp per column, ``cols_per_cta``
+    columns per CTA.  CPU tensors go to `sptrsv_blocked_plain`.
     """
     _check_inputs(instr, values, b, num_slots)
     _check_sweep(instr, b, window, stride, cycles_per_block)
@@ -273,7 +389,9 @@ def sptrsv_cuda_blocked(instr, values, b, *, window: int, stride: int,
                                     stride=stride,
                                     cycles_per_block=cycles_per_block,
                                     num_slots=num_slots)
-    _check_cuda(instr, b, cols_per_cta)
+    _check_cuda(instr, values, b, num_slots, cols_per_cta, cycles_per_block)
+    if cycles_per_block % STREAM_CHUNK:
+        instr, values, cycles_per_block = _pad_blocks(instr, values, cycles_per_block)
     lib = build()
     t, planes, p = instr.shape
     x = torch.empty_like(b)
@@ -281,7 +399,7 @@ def sptrsv_cuda_blocked(instr, values, b, *, window: int, stride: int,
         rc = lib.sptrsv_blocked(
             instr.data_ptr(), values.data_ptr(), b.data_ptr(), x.data_ptr(),
             t, planes, p, b.shape[1], num_slots, cols_per_cta, window, stride,
-            cycles_per_block, _stream())
+            cycles_per_block, ring_rows(window), _stream())
     _raise_on(lib, rc, "sptrsv_blocked")
     sptrsv_cuda_blocked.launches += 1
     return x

@@ -5,17 +5,20 @@ Ports `repro/kernels/sptrsv/ops.py`.  Two placements of the solve state:
   * ``resident`` — every CTA holds the whole padded x vector of its RHS
     columns (`kernel.sptrsv_cuda`), in shared memory where it fits, else in
     device memory;
-  * ``blocked``  — every CTA holds a ring of ``window`` x rows in shared
-    memory that slides ``stride`` rows per cycle block over x and b in
-    device memory (`kernel.sptrsv_cuda_blocked`).  Shared memory is then
-    bounded by the window, not by n.
+  * ``blocked``  — every CTA holds a ring of x rows (the power of two at
+    or above ``window``) in shared memory that slides ``stride`` rows per
+    cycle block over x and b in device memory, and a staging area for the
+    ``stride`` rows of b that enter at the next boundary
+    (`kernel.sptrsv_cuda_blocked`).  Shared memory is then bounded by the
+    window, not by n.
 
 What a CTA holds is sized per column tile (``cols_per_cta`` RHS columns per
-CTA, one thread per lane and column) against ``smem_limit_bytes`` of shared
-memory, by default the 227 KB a Hopper CTA can use.  Solvers take
-`COLS_PER_CTA` = 1: the solve is bound by the per-cycle barrier, which is
-cheapest across the fewest threads, and one column per CTA spreads a batch
-over the most SMs.  ``placement="auto"``
+CTA, one warp per column: its x rows, psum register file and instruction
+stream ring) against ``smem_limit_bytes`` of shared memory, by default the
+227 KB a Hopper CTA can use.  Solvers take `COLS_PER_CTA` = 1: the
+columns' warps never wait on each other, so more columns per CTA only
+share an SM's issue slots (2 and 4 measured no faster on the H100), and
+one column per CTA spreads a batch over the most SMs.  ``placement="auto"``
 keeps the resident placement while its x fits in shared memory, goes
 blocked beyond that when the program's row envelope admits a window
 (`plan_window`) that fits, and otherwise stays resident with x in device
@@ -36,16 +39,16 @@ import torch
 
 from repro_torch.core.errors import PlacementInfeasibleError
 from repro_torch.core.executor import _psum_slots, as_batch
-from repro_torch.core.program import (
-    PS_LOAD,
-    PS_STORE_RESET,
-    PS_SWAP,
-    Program,
-    decode_instructions,
-)
+from repro_torch.core.program import SRC_BITS, Program, decode_instructions
 from repro_torch.kernels.common import resolve_device
 
-from .kernel import PREFETCH_CYCLES, sptrsv_cuda, sptrsv_cuda_blocked
+from .kernel import (
+    MAX_SMEM_BYTES,
+    ring_rows,
+    smem_bytes_per_column,
+    sptrsv_cuda,
+    sptrsv_cuda_blocked,
+)
 
 __all__ = [
     "solve",
@@ -60,7 +63,7 @@ __all__ = [
 ]
 
 # shared memory a Hopper CTA can use (dynamic, after opting in): 227 KB
-DEFAULT_SMEM_BYTES = 232448
+DEFAULT_SMEM_BYTES = MAX_SMEM_BYTES
 COLS_PER_CTA = 1  # RHS columns per CTA of the solvers (module docstring)
 
 _ROW_ALIGN = 8  # window/stride row granularity (as in the JAX package)
@@ -83,10 +86,16 @@ class WindowPlan:
     num_blocks: int = 0
     reason: str = ""
 
+    def x_words(self) -> int:
+        """x words of one column in shared memory: the ring of
+        `kernel.ring_rows` rows and the staging area of ``stride`` rows of
+        b."""
+        return ring_rows(self.window) + self.stride
+
     def state_bytes(self, nb: int) -> int:
-        """Shared-memory bytes of the x ring of one CTA holding ``nb``
-        columns (one ring; b is read from device memory into it)."""
-        return self.window * nb * 4
+        """Shared-memory bytes of the x rows of one CTA holding ``nb``
+        columns (`x_words` each)."""
+        return self.x_words() * nb * 4
 
 
 def _round_up(v: int, m: int) -> int:
@@ -150,23 +159,25 @@ def plan_window(
 
 
 def instr_buffer_bytes(prog: Program) -> int:
-    """Instruction bytes one column of lane threads holds in flight.
+    """Instruction bytes one column's warp holds in shared memory.
 
-    Each thread keeps its lane's packed words and value for two groups of
-    `kernel.PREFETCH_CYCLES` cycles in registers (the group executing and
-    the one loading): ``2 * G * P * (4 * planes + 4)``.
+    The stream ring: `kernel.stream_ring_cycles` cycles of the packed words
+    and the value of every lane, the lanes padded to a multiple of 32:
+    ``R * 32 * lanes_per_thread * (4 * planes + 4)`` with R =
+    `kernel.stream_ring_cycles`.
     """
-    return 2 * PREFETCH_CYCLES * prog.num_cus * (4 * prog.planes + 4)
+    return smem_bytes_per_column(prog.num_cus, prog.planes, num_slots=0)
 
 
 def state_bytes(prog: Program, cols_per_cta: int = COLS_PER_CTA, *, placement: str,
                 plan: WindowPlan | None = None) -> dict:
     """Shared memory of one CTA holding ``cols_per_cta`` RHS columns.
 
-    Returns ``{"x": ..., "rf": ..., "total": ...}`` bytes: the x rows
-    (the whole padded vector for ``"resident"``, the ring window for
-    ``"blocked"``, which needs the `WindowPlan`) and the psum register
-    file.
+    Returns ``{"x": ..., "rf": ..., "stream": ..., "total": ...}`` bytes:
+    the x rows (the whole padded vector for ``"resident"``; the ring and
+    the b staging area for ``"blocked"``, which needs the `WindowPlan`),
+    the psum register file and the instruction stream ring
+    (`instr_buffer_bytes`), each for all the CTA's columns.
     """
     if placement == "blocked":
         if plan is None or not plan.feasible:
@@ -176,8 +187,10 @@ def state_bytes(prog: Program, cols_per_cta: int = COLS_PER_CTA, *, placement: s
         x = (prog.n + 1) * cols_per_cta * 4
     else:
         raise ValueError(f"unknown placement {placement!r}")
-    rf = _psum_slots(prog) * prog.num_cus * cols_per_cta * 4
-    return {"x": x, "rf": rf, "total": x + rf}
+    stream = instr_buffer_bytes(prog) * cols_per_cta
+    rf = smem_bytes_per_column(prog.num_cus, prog.planes, _psum_slots(prog)) \
+        * cols_per_cta - stream
+    return {"x": x, "rf": rf, "stream": stream, "total": x + rf + stream}
 
 
 def resolve_placement(
@@ -261,23 +274,29 @@ def _check_stream(instr: np.ndarray, n_slots: int, n_rows: int,
                   plan: WindowPlan | None, cycles_per_block: int) -> None:
     """Check the staged words against what the kernels may touch.
 
-    The kernels index shared memory with the words' slot and row fields
-    unchecked, so a word past the psum register file, past x, or outside
-    its block's window is refused here, once per staging.
+    The kernels load the psum slot and the x row of every word, NOP and
+    padding words included (row 0 and slot 0), and index shared memory with
+    them unchecked (the slot as the word's bits from the slot field up), so
+    a word with bits past its packed fields, a slot past the psum register
+    file, a row past x, or an active word outside its block's window is
+    refused here, once per staging.
     """
-    op, src, ctl, slot = decode_instructions(instr, instr.shape[1])
-    uses_slot = (ctl == PS_LOAD) | (ctl == PS_STORE_RESET) | (ctl == PS_SWAP)
-    if (slot[uses_slot] >= n_slots).any():
+    planes = instr.shape[1]
+    upper = instr[:, 0] >> SRC_BITS if planes == 1 else instr[:, 1]
+    if (instr[:, 0] < 0).any() or (upper >> 13).any():
+        raise ValueError("instruction words carry bits past their packed fields")
+    op, src, _, slot = decode_instructions(instr, planes)
+    if (slot >= n_slots).any():
         raise ValueError(f"instruction stream addresses a psum slot beyond "
                          f"the {n_slots} the register file holds")
-    active = op != 0
+    if (src >= n_rows).any():
+        raise ValueError("instruction stream names a row past the x rows")
     if plan is None:
-        lo, hi = np.zeros_like(src), np.full_like(src, n_rows)
-    else:
-        block = np.arange(instr.shape[0])[:, None] // cycles_per_block
-        lo = block * plan.stride
-        hi = lo + plan.window
-    if ((src < lo) | (src >= hi))[active].any():
+        return
+    block = np.arange(instr.shape[0])[:, None] // cycles_per_block
+    lo = block * plan.stride
+    hi = lo + plan.window
+    if ((src < lo) | (src >= hi))[op != 0].any():
         raise ValueError("instruction stream touches a row outside the x "
                          "rows its cycle may address")
 

@@ -6,9 +6,13 @@ that has a CUDA card and no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch twin on the same CUDA
-tensors: the SpTRSV kernels at rtol 1e-5, atol 1e-5 (as
-tests/test_blocked.py), and the slice end to end against the serial
-forward substitution; the scan at 2e-4 of the plain result's largest value
+tensors: the SpTRSV kernels bit for bit (neither they nor the twins
+contract a product and a sum into an FMA, so both round every operation
+alike; rtol/atol 1e-5, as tests/test_blocked.py, is the floor), at P = 8
+to 256 lanes, with 1, 2 and 4 columns per CTA and in both word planes,
+the blocked kernel on the row words its twin takes, at block lengths of 3
+to 128 cycles (the wrapper pads a block to whole 8-cycle chunks); and the slice end to end against the serial forward
+substitution; the scan at 2e-4 of the plain result's largest value
 (f32, sums in another order; the kernel's 3xTF32 products keep ~f32
 accuracy); attention at 2e-5 in f32 (the f32 kernel stays on the CUDA
 cores) and 2e-2 of the largest value in bf16 (the kernel rounds P to bf16
@@ -26,6 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import api
 from repro_torch.core.csr import serial_solve
 from repro_torch.core.executor import _psum_slots
+from repro_torch.core.program import AccelConfig
 from repro_torch.core.schedule import compile_program
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_cuda,
@@ -37,6 +42,7 @@ from repro_torch.kernels.sptrsv import kernel, ops
 from repro_torch.models import RuntimeFlags, init_params, prefill
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+EXACT = dict(rtol=0, atol=0)
 
 
 @pytest.fixture
@@ -53,35 +59,180 @@ def _staged(prog, cpb, rows, nb, seed, device):
     return [torch.from_numpy(a).to(device) for a in (instr, values, b)]
 
 
+def _check_launch(wrapper, fits, run, want, n):
+    """``run()`` matches ``want`` bit for bit when the CTA's shared memory
+    fits the 227 KB; otherwise it is refused before or at launch (the
+    psum files and stream rings by `check_kernel_limits`, x by the card)
+    and counts no launch."""
+    before = wrapper.launches
+    if not fits:
+        with pytest.raises((ValueError, RuntimeError), match="shared memory|launch failed"):
+            run()
+        assert wrapper.launches == before
+        return
+    got = run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got[:n], want[:n], **EXACT)
+
+
+def _fits(prog, cols, x_words):
+    return cols * kernel.smem_bytes_per_column(
+        prog.num_cus, prog.planes, _psum_slots(prog), x_words) <= kernel.MAX_SMEM_BYTES
+
+
+def _resident_case(prog, instr, values, b, configs):
+    slots = _psum_slots(prog)
+    want = kernel.sptrsv_plain(instr, values, b, num_slots=slots)
+    for x_in_smem, cols in configs:
+        _check_launch(
+            kernel.sptrsv_cuda, _fits(prog, cols, b.shape[0] if x_in_smem else 0),
+            lambda: kernel.sptrsv_cuda(instr, values, b, num_slots=slots,
+                                       x_in_smem=x_in_smem, cols_per_cta=cols),
+            want, prog.n)
+
+
+def _blocked_case(prog, cpb, cuda, seed, cols_list):
+    plan = ops.plan_window(prog, cpb)
+    assert plan.feasible
+    instr, values, b = _staged(prog, cpb, plan.n_hbm, 16, seed, cuda)
+    kw = dict(window=plan.window, stride=plan.stride, cycles_per_block=cpb,
+              num_slots=_psum_slots(prog))
+    want = kernel.sptrsv_blocked_plain(instr, values, b, **kw)
+    for cols in cols_list:
+        _check_launch(
+            kernel.sptrsv_cuda_blocked, _fits(prog, cols, plan.x_words()),
+            lambda: kernel.sptrsv_cuda_blocked(instr, values, b, cols_per_cta=cols, **kw),
+            want, prog.n)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,planes", [("ckt_rajat04", 1), ("band_cz", 2)])
 def test_resident_kernel_matches_plain(cuda, name, planes):
     prog = compile_program(api.matrix(name), planes=planes)
     instr, values, b = _staged(prog, 128, prog.n + 1, 16, 3, cuda)
-    slots = _psum_slots(prog)
-    want = kernel.sptrsv_plain(instr, values, b, num_slots=slots)
-    for x_in_smem, cols in ((True, 1), (False, 2)):
-        before = kernel.sptrsv_cuda.launches
-        got = kernel.sptrsv_cuda(instr, values, b, num_slots=slots,
-                                 x_in_smem=x_in_smem, cols_per_cta=cols)
-        assert kernel.sptrsv_cuda.launches == before + 1
-        torch.testing.assert_close(got[:prog.n], want[:prog.n], **TOL)
+    _resident_case(prog, instr, values, b,
+                   ((True, 1), (True, 2), (True, 4), (False, 1), (False, 2), (False, 4)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,cpb,planes", [("band_dw2048", 64, 1), ("band_cz", 32, 2)])
 def test_blocked_kernel_matches_plain(cuda, name, cpb, planes):
     prog = compile_program(api.matrix(name), planes=planes)
-    plan = ops.plan_window(prog, cpb)
-    instr, values, b = _staged(prog, cpb, plan.n_hbm, 16, 4, cuda)
-    kw = dict(window=plan.window, stride=plan.stride, cycles_per_block=cpb,
-              num_slots=_psum_slots(prog))
+    _blocked_case(prog, cpb, cuda, 4, (1, 2, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_cus", [8, 16])
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("name", ["band_cz", "hub_small"])
+def test_kernels_at_fewer_than_32_lanes(cuda, num_cus, planes, name):
+    """P < 32: one warp per column with the threads past P masked."""
+    prog = compile_program(api.matrix(name), AccelConfig(num_cus=num_cus), planes=planes)
+    assert prog.num_cus == num_cus
+    instr, values, b = _staged(prog, 128, prog.n + 1, 16, num_cus, cuda)
+    _resident_case(prog, instr, values, b, ((True, 1), (True, 2), (True, 4), (False, 4)))
+    # 64 cycles a block: 8 stream chunks, past the lead of 4 (blocks shorter
+    # than the lead: test_blocked_kernel_at_any_block_length)
+    _blocked_case(prog, 64, cuda, num_cus + planes, (1, 2, 4))
+
+
+def _sweep(prog, cpb, stride):
+    """(window, n_hbm) of a sweep of ``stride`` rows per block of ``cpb``
+    cycles: `ops.plan_window` without its 8-row alignment, so a block may
+    be shorter than one stream chunk."""
+    g = -(-prog.cycles // cpb)
+    lo = np.full(g * cpb, prog.n, np.int64)
+    hi = np.full(g * cpb, -1, np.int64)
+    lo[:prog.cycles], hi[:prog.cycles] = prog.row_lo, prog.row_hi
+    lo, hi = lo.reshape(g, cpb).min(1), hi.reshape(g, cpb).max(1)
+    base = np.arange(g) * stride
+    live = hi >= 0
+    assert (lo[live] >= base[live]).all()
+    window = max(int((hi[live] - base[live]).max()) + 1, 2 * stride)
+    return window, (g - 1) * stride + window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_cus,name,cpb", [
+    (64, "band_dw2048", 12),    # padded to 16 cycles; block < the lead (wait_all)
+    (64, "band_dw2048", 16),    # whole chunks, 2 < the lead of 4 (wait_all)
+    (64, "band_dw2048", 24),
+    (64, "band_dw2048", 100),   # padded to 104 cycles, 13 chunks a block
+    (8, "hub_small", 24),       # P < 32, wait_all
+    (128, "ckt_rajat04", 12),   # four lanes a thread, lead of 2 chunks (wait_all)
+    (128, "band_cz", 100),
+    (256, "band_cz", 16),       # eight lanes a thread, 2 chunks = the lead
+    (256, "ckt_rajat04", 24),
+])
+@pytest.mark.parametrize("planes", [1, 2])
+def test_blocked_kernel_at_any_block_length(cuda, num_cus, name, cpb, planes):
+    """Blocks of any length (one that is not a whole number of 8-cycle
+    stream chunks is padded with NOP cycles by the wrapper), blocks shorter
+    than the stream's lead (the b prefetch is awaited), P from 8 to 256."""
+    prog = compile_program(api.matrix(name), AccelConfig(num_cus=num_cus), planes=planes)
+    assert prog.num_cus == num_cus
+    _blocked_case(prog, cpb, cuda, cpb + planes, (1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cpb", [3, 5])
+def test_blocked_kernel_with_blocks_shorter_than_a_chunk(cuda, cpb):
+    """Blocks of 3 and 5 cycles, each padded to one 8-cycle chunk (a
+    sweep of one row per block, which `ops.plan_window` does not plan)."""
+    prog = compile_program(api.matrix("chain_1k"))
+    window, n_hbm = _sweep(prog, cpb, 1)
+    instr, values, b = _staged(prog, cpb, n_hbm, 16, cpb, cuda)
+    kw = dict(window=window, stride=1, cycles_per_block=cpb, num_slots=_psum_slots(prog))
     want = kernel.sptrsv_blocked_plain(instr, values, b, **kw)
-    for cols in (1, 2):
-        before = kernel.sptrsv_cuda_blocked.launches
-        got = kernel.sptrsv_cuda_blocked(instr, values, b, cols_per_cta=cols, **kw)
-        assert kernel.sptrsv_cuda_blocked.launches == before + 1
-        torch.testing.assert_close(got[:prog.n], want[:prog.n], **TOL)
+    for cols in (1, 4):
+        _check_launch(kernel.sptrsv_cuda_blocked, True,
+                      lambda: kernel.sptrsv_cuda_blocked(instr, values, b, cols_per_cta=cols,
+                                                         **kw),
+                      want, prog.n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_cus", [128, 256])
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("name", ["band_cz", "ckt_rajat04"])
+def test_resident_kernel_at_128_and_256_lanes(cuda, num_cus, planes, name):
+    """Four and eight lanes a thread (v4 shared loads, 32-byte copies in
+    two)."""
+    prog = compile_program(api.matrix(name), AccelConfig(num_cus=num_cus), planes=planes)
+    assert prog.num_cus == num_cus
+    instr, values, b = _staged(prog, 128, prog.n + 1, 16, num_cus + planes, cuda)
+    _resident_case(prog, instr, values, b, ((True, 1), (True, 2), (False, 1), (False, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [1, 3, 8, 13])
+def test_resident_kernel_on_a_stream_cut_off_mid_chunk(cuda, cut):
+    """T not a multiple of the 8-cycle stream chunk: the chunk's missing
+    cycles are zero words (NOPs)."""
+    prog = compile_program(api.matrix("ckt_rajat04"))
+    instr, values, b = _staged(prog, 128, prog.n + 1, 16, cut, cuda)
+    t = prog.cycles - cut
+    _resident_case(prog, instr[:t].contiguous(), values[:t].contiguous(), b,
+                   ((True, 1), (False, 2)))
+
+
+@pytest.mark.cuda
+def test_kernel_limits_refuse_before_launching(cuda):
+    prog = api.compile(api.matrix("band_cz"))
+    instr, values, b = _staged(prog, 128, prog.n + 1, 32, 6, cuda)
+    plan = ops.plan_window(prog, 64)
+    before = (kernel.sptrsv_cuda.launches, kernel.sptrsv_cuda_blocked.launches)
+    with pytest.raises(ValueError, match="cols_per_cta"):
+        kernel.sptrsv_cuda(instr, values, b, num_slots=_psum_slots(prog), cols_per_cta=32)
+    bb = torch.zeros((plan.n_hbm, 8), device=cuda)
+    with pytest.raises(ValueError, match="cols_per_cta"):
+        kernel.sptrsv_cuda_blocked(instr[:plan.num_blocks * 64].contiguous(),
+                                   values[:plan.num_blocks * 64].contiguous(), bb,
+                                   window=plan.window, stride=plan.stride,
+                                   cycles_per_block=64, num_slots=_psum_slots(prog),
+                                   cols_per_cta=9)
+    assert (kernel.sptrsv_cuda.launches, kernel.sptrsv_cuda_blocked.launches) == before
 
 
 @pytest.mark.cuda

@@ -84,3 +84,27 @@ def test_default_device_is_cuda_and_raises_without_it():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.setup(serve.parse_args(["--reduced"]))
+
+
+def test_reused_library_keeps_its_compiler_output(tmp_path, monkeypatch):
+    """A library built once and reused in a later process still reports the
+    compiler's output (ptxas registers and spills), read from its ``.log``."""
+    from repro_torch.kernels import common
+
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    "while [ \"$1\" != -o ]; do shift; done\n"
+                    "echo lib > \"$2\"\n"
+                    "echo \"ptxas info    : Used 40 registers\"\n")
+    fake.chmod(0o755)
+    src = tmp_path / "k.cu"
+    src.write_text("// a kernel\n")
+    monkeypatch.setattr(common, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(common, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(common, "BUILD_LOGS", {})
+    path = common.build_library("k", src)
+    assert path.exists() and "Used 40 registers" in common.BUILD_LOGS["k"]
+    common.BUILD_LOGS.clear()  # a later process: the library is reused, not built
+    monkeypatch.setattr(common, "_nvcc", lambda: pytest.fail("rebuilt"))
+    assert common.build_library("k", src) == path
+    assert "Used 40 registers" in common.BUILD_LOGS["k"]

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from repro.core import api as ref_api
 from repro.core.executor import _psum_slots
 from repro.core.matrices import generate
+from repro.core.program import AccelConfig as RefAccelConfig
 from repro.core.schedule import compile_program as ref_compile_program
 from repro.kernels.sptrsv import ops as ref_ops
 from repro.kernels.sptrsv.kernel import sptrsv_pallas, sptrsv_pallas_blocked
@@ -63,6 +64,7 @@ def test_resident_plain_matches_pallas(name, planes):
 @pytest.mark.parametrize("name,cpb,planes", [
     ("band_cz", 64, 1), ("band_cz", 32, 1), ("chain_1k", 128, 1),
     ("band_dw2048", 64, 1), ("band_cz", 32, 2),
+    ("band_dw2048", 12, 1), ("band_cz", 100, 2),  # blocks of part of a stream chunk
 ])
 def test_blocked_plain_matches_pallas(name, cpb, planes):
     ref = ref_compile_program(generate(name), planes=planes)
@@ -78,6 +80,158 @@ def test_blocked_plain_matches_pallas(name, cpb, planes):
         *_t(instr, values, b), window=plan.window, stride=plan.stride,
         cycles_per_block=cpb, num_slots=slots).numpy()
     np.testing.assert_allclose(got[:ref.n], want[:ref.n], **TOL)
+
+
+@pytest.mark.parametrize("num_cus,planes,cpb", [(8, 1, 64), (16, 2, 64), (4, 1, 128)])
+def test_plain_matches_pallas_at_fewer_than_32_lanes(num_cus, planes, cpb):
+    """Programs of P < 32 lanes, which the kernels run on one warp with the
+    threads past P masked: both twins against both Pallas kernels."""
+    ref = ref_compile_program(generate("band_cz"), RefAccelConfig(num_cus=num_cus),
+                              planes=planes)
+    assert ref.num_cus == num_cus
+    slots = _psum_slots(ref)
+    instr, values, b = _staged(ref, cpb, ref.n + 1, 3, seed=num_cus)
+    want = np.asarray(sptrsv_pallas(jnp.asarray(instr), jnp.asarray(values),
+                                    jnp.asarray(b), num_slots=slots,
+                                    cycles_per_block=cpb, interpret=True))
+    got = kernel.sptrsv_plain(*_t(instr, values, b), num_slots=slots).numpy()
+    np.testing.assert_allclose(got[:ref.n], want[:ref.n], **TOL)
+    plan = ref_ops.plan_window(ref, cpb)
+    assert plan.feasible
+    instr, values, b = _staged(ref, cpb, plan.n_hbm, 3, seed=num_cus + 1)
+    want = np.asarray(sptrsv_pallas_blocked(
+        jnp.asarray(instr), jnp.asarray(values), jnp.asarray(b), window=plan.window,
+        stride=plan.stride, cycles_per_block=cpb, num_slots=slots, interpret=True))
+    got = kernel.sptrsv_blocked_plain(
+        *_t(instr, values, b), window=plan.window, stride=plan.stride,
+        cycles_per_block=cpb, num_slots=slots).numpy()
+    np.testing.assert_allclose(got[:ref.n], want[:ref.n], **TOL)
+
+
+@pytest.mark.parametrize("window", [16, 160, 272, 1024, 1025])
+def test_blocked_plain_ring_of_power_of_two_rows(window):
+    """The ring holds the power of two >= window rows: a window's rows take
+    distinct slots, and the sweep over a window that is not a power of two
+    (retire, then refill slots that differ from the retired ones) gives the
+    same x as the sweep over a ring of exactly ``window`` rows."""
+    rows = kernel.ring_rows(window)
+    assert rows >= window and rows & (rows - 1) == 0 and rows < 2 * window
+    ref = ref_compile_program(generate("band_cz"))
+    plan = ref_ops.plan_window(ref, 32, min_window=window)
+    instr, values, b = _staged(ref, 32, plan.n_hbm, 2, seed=window)
+    slots = _psum_slots(ref)
+    kw = dict(window=plan.window, stride=plan.stride, cycles_per_block=32, num_slots=slots)
+    got = kernel.sptrsv_blocked_plain(*_t(instr, values, b), **kw).numpy()
+    want = kernel.sptrsv_plain(*_t(instr, values, np.concatenate(
+        [b[:ref.n], np.zeros((1, 2), np.float32)])), num_slots=slots).numpy()
+    np.testing.assert_array_equal(got[:ref.n], want[:ref.n])
+
+
+def _sweep(ref, cpb):
+    """(window, stride) of a sweep of one row per block of ``cpb`` cycles:
+    `plan_window` without its 8-row alignment, so blocks may be shorter
+    than one 8-cycle stream chunk."""
+    g = -(-ref.cycles // cpb)
+    lo = np.full(g * cpb, ref.n, np.int64)
+    hi = np.full(g * cpb, -1, np.int64)
+    lo[:ref.cycles], hi[:ref.cycles] = ref.row_lo, ref.row_hi
+    lo, hi = lo.reshape(g, cpb).min(1), hi.reshape(g, cpb).max(1)
+    live = hi >= 0
+    assert (lo[live] >= np.arange(g)[live]).all()
+    return int((hi[live] - np.arange(g)[live]).max()) + 1, 1
+
+
+@pytest.mark.parametrize("cpb", [3, 5])
+def test_blocked_plain_with_blocks_shorter_than_a_chunk(cpb):
+    """A sweep of one row per block of 3 or 5 cycles (more than one block
+    boundary in an 8-cycle stream chunk): the blocked twin bit-equal to the
+    resident twin."""
+    ref = ref_compile_program(generate("chain_1k"))
+    window, stride = _sweep(ref, cpb)
+    n_hbm = (-(-ref.cycles // cpb) - 1) * stride + window
+    instr, values, b = _staged(ref, cpb, n_hbm, 3, seed=cpb)
+    slots = _psum_slots(ref)
+    got = kernel.sptrsv_blocked_plain(*_t(instr, values, b), window=window, stride=stride,
+                                      cycles_per_block=cpb, num_slots=slots).numpy()
+    want = kernel.sptrsv_plain(*_t(instr, values, np.concatenate(
+        [b[:ref.n], np.zeros((1, 3), np.float32)])), num_slots=slots).numpy()
+    np.testing.assert_array_equal(got[:ref.n], want[:ref.n])
+
+
+@pytest.mark.parametrize("name,cpb,planes", [("band_dw2048", 12, 1), ("band_cz", 100, 2),
+                                             ("chain_1k", 3, 1)])
+def test_blocks_padded_to_whole_stream_chunks(name, cpb, planes):
+    """What `sptrsv_cuda_blocked` launches for a block length that is not a
+    multiple of the 8-cycle stream chunk: each block padded with NOP cycles,
+    which the blocked twin solves to the same x, bit for bit."""
+    ref = ref_compile_program(generate(name), planes=planes)
+    if cpb < 8:
+        window, stride = _sweep(ref, cpb)
+    else:
+        plan = ref_ops.plan_window(ref, cpb)
+        window, stride = plan.window, plan.stride
+    n_hbm = (-(-ref.cycles // cpb) - 1) * stride + window
+    instr, values, b = _t(*_staged(ref, cpb, n_hbm, 3, seed=cpb))
+    kw = dict(window=window, stride=stride, num_slots=_psum_slots(ref))
+    pi, pv, cycles = kernel._pad_blocks(instr, values, cpb)
+    assert cycles % kernel.STREAM_CHUNK == 0 and cycles - cpb < kernel.STREAM_CHUNK
+    assert pi.shape[0] == instr.shape[0] // cpb * cycles
+    want = kernel.sptrsv_blocked_plain(instr, values, b, cycles_per_block=cpb, **kw)
+    got = kernel.sptrsv_blocked_plain(pi, pv, b, cycles_per_block=cycles, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# lanes, planes, num_slots, cols_per_cta, cycles_per_block -> accepted?
+_LIMITS = [
+    ((64, 1, 12, 1, 128), None),
+    ((64, 1, 12, 4, None), None),
+    ((1, 1, 12, 8, None), None),           # P = 1: one lane, 31 threads masked
+    ((32, 1, 12, 8, 16), None),
+    ((8, 2, 12, 4, 64), None),
+    ((48, 1, 12, 4, None), None),          # P even up to 64
+    ((256, 2, 12, 1, 8), None),
+    ((256, 1, 12, 2, None), None),
+    ((0, 1, 12, 1, None), "lanes"),
+    ((257, 1, 12, 1, None), "lanes"),
+    ((33, 1, 12, 1, None), "lanes"),       # odd P above 32: 4-byte lanes pairs
+    ((102, 1, 12, 1, None), "lanes"),      # P % 4 above 64
+    ((64, 3, 12, 1, None), "planes"),
+    ((64, 1, 0, 1, None), "num_slots"),
+    ((64, 1, 257, 1, None), "num_slots"),
+    ((64, 1, 12, 0, None), "cols_per_cta"),
+    ((32, 1, 12, 9, None), "cols_per_cta"),   # 8 warps at most
+    ((64, 1, 12, 9, None), "cols_per_cta"),
+    ((128, 1, 12, 5, None), "cols_per_cta"),  # 4 at four lanes per thread
+    ((256, 1, 12, 3, None), "cols_per_cta"),  # 2 at eight
+    ((64, 1, 256, 4, None), "shared memory"),  # 4 x (64 KB psum + 20 KB ring)
+    ((64, 2, 128, 8, None), "shared memory"),  # 8 x (32 KB psum + 30 KB ring)
+    ((64, 1, 12, 1, 0), "cycles_per_block"),
+    ((64, 1, 12, 1, -8), "cycles_per_block"),
+    ((64, 1, 12, 1, 60), None),            # a boundary inside a stream chunk
+    ((64, 1, 12, 1, 4), None),             # two boundaries in one chunk
+    ((128, 2, 12, 4, 12), None),
+]
+
+
+@pytest.mark.parametrize("args,refused", _LIMITS)
+def test_check_kernel_limits(args, refused):
+    if refused is None:
+        kernel.check_kernel_limits(*args)
+    else:
+        with pytest.raises(ValueError, match=refused):
+            kernel.check_kernel_limits(*args)
+
+
+@pytest.mark.parametrize("p,lanes,ring", [(1, 1, 40), (32, 1, 40), (33, 2, 40), (64, 2, 40),
+                                          (128, 4, 24), (256, 8, 24)])
+def test_kernel_shape_rules(p, lanes, ring):
+    assert kernel.lanes_per_thread(p) == lanes
+    assert kernel.max_cols_per_cta(p) == {1: 8, 2: 8, 4: 4, 8: 2}[lanes]
+    assert kernel.stream_ring_cycles(p) == ring
+    assert ring % kernel.STREAM_CHUNK == 0
+    # the psum file, the stream ring and x rows, all 4-byte words
+    assert kernel.smem_bytes_per_column(p, 2, 12, 100) == \
+        4 * (12 * 32 * lanes + ring * 3 * 32 * lanes + 100)
 
 
 def test_wrappers_take_plain_path_on_cpu_without_launching():
@@ -143,7 +297,10 @@ def test_placement_against_smem_budget():
     resident = ops.state_bytes(prog, placement="resident")
     assert resident["x"] == (prog.n + 1) * 4
     assert resident["rf"] == ops._psum_slots(prog) * prog.num_cus * 4
-    assert ops.instr_buffer_bytes(prog) == 2 * kernel.PREFETCH_CYCLES * prog.num_cus * 8
+    # the stream ring: R cycles of one packed word and one value per lane
+    assert ops.instr_buffer_bytes(prog) == \
+        kernel.stream_ring_cycles(prog.num_cus) * prog.num_cus * 8
+    assert resident["stream"] == ops.instr_buffer_bytes(prog)
     # the whole vector fits the default 227 KB budget: resident
     assert ops.resolve_placement(prog, 8) == ("resident", None)
     # just below the resident state: the row window takes over
@@ -152,7 +309,9 @@ def test_placement_against_smem_budget():
                                        cycles_per_block=64)
     assert mode == "blocked" and plan.window < prog.n
     blocked = ops.state_bytes(prog, placement="blocked", plan=plan)
-    assert blocked["total"] <= limit and blocked["x"] == plan.window * 4
+    # x: the power-of-two row ring and the staging rows of b
+    assert blocked["total"] <= limit
+    assert blocked["x"] == (kernel.ring_rows(plan.window) + plan.stride) * 4
     # the column tile multiplies what a CTA holds
     assert ops.state_bytes(prog, 4, placement="blocked", plan=plan)["total"] \
         == 4 * blocked["total"]
@@ -165,6 +324,22 @@ def test_placement_against_smem_budget():
     assert solver.placement == "resident" and not solver.x_in_smem
     with pytest.raises(ValueError, match="cols_per_cta"):
         ops.resolve_placement(prog, 8, cols_per_cta=3)
+
+
+@pytest.mark.parametrize("name,placement", [("band_cz", "resident"), ("band_cz", "blocked"),
+                                            ("ckt_rajat04", "resident")])
+@pytest.mark.parametrize("cols", [1, 2, 4])
+def test_state_bytes_is_the_kernels_launch(name, placement, cols):
+    """`ops.state_bytes` counts what the C entry points ask the launch for:
+    per column the psum file, the stream ring and the x rows."""
+    prog = port_program(ref_api.compile(generate(name)))
+    plan = ops.plan_window(prog, 64) if placement == "blocked" else None
+    got = ops.state_bytes(prog, cols, placement=placement, plan=plan)
+    x_words = prog.n + 1 if plan is None else plan.x_words()
+    assert got["total"] == cols * kernel.smem_bytes_per_column(
+        prog.num_cus, prog.planes, ops._psum_slots(prog), x_words)
+    assert got["stream"] == cols * ops.instr_buffer_bytes(prog)
+    assert got["x"] == cols * x_words * 4
 
 
 def test_forced_blocked_infeasible_raises():
@@ -192,6 +367,12 @@ def test_staging_refuses_out_of_range_words():
     ops._check_stream(ckt_instr, ops._psum_slots(ckt), ckt.n + 1, None, 128)
     with pytest.raises(ValueError, match="psum slot"):
         ops._check_stream(ckt_instr, 4, ckt.n + 1, None, 128)
+    with pytest.raises(ValueError, match="past the x rows"):
+        ops._check_stream(ckt_instr, ops._psum_slots(ckt), 100, None, 128)
+    stray = ckt_instr.copy()
+    stray[5, 0, 3] |= np.int32(-2 ** 31)  # bit 31: past the slot field
+    with pytest.raises(ValueError, match="past their packed fields"):
+        ops._check_stream(stray, ops._psum_slots(ckt), ckt.n + 1, None, 128)
     narrow = ops.WindowPlan(True, stride=plan.stride, window=16,
                             n_hbm=plan.n_hbm, num_blocks=plan.num_blocks)
     with pytest.raises(ValueError, match="outside"):
