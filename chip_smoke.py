@@ -31,21 +31,50 @@ largest matrices with 16 right-hand sides:
      fails the smoke), and the dynamic shared memory the two main-path
      launches ask for.
 
+Then the rest of the solve API through the same kernels, at 16 right-hand
+sides, placement "auto" and backend "cuda" (no path can fall back to the
+CPU or to a plain version), each held against its float64 oracle at RTOL
+and its launch counts asserted:
+
+  7. an incomplete-Cholesky preconditioner application on band_huge64k,
+     api.compile_pair then pair.solve: the forward sweep Ly=b row-blocked,
+     the backward sweep L^T x=y resident with x in device memory (the
+     reversed schedule leaves no window that fits), one launch of each
+     kernel; oracle serial_solve then serial_solve_upper;
+  8. the same on ckt_huge32k: both sweeps resident, x in shared memory;
+  9. a DPU-v2-style circuit at the paper's largest node count, 85,392
+     (random_circuit as benchmarks/dag_workloads.py builds it),
+     api.compile_circuit then solve, against circ.eval: one resident
+     launch with x in device memory;
+ 10. node splitting on hub_wall_big, api.compile_split(max_indegree=64)
+     then api.solve_split, against serial_solve of the unsplit matrix;
+ 11. compile once, load, serve: the band backward program saved, loaded
+     with verification (load_program(verify=True), timed) and solved to
+     the same bits as the compiled program; api.analyze_program on it
+     finds no error (its lint codes are printed).
+
+For every sweep of steps 7-10 it prints the kernel's time (CUDA events),
+its microseconds and SM clocks per emitted cycle, the time the entry point
+adds (solve_ms - ms), the bound, cuSPARSE's triangular solve on the same
+triangle (upper=True for the backward sweep) and where x sat; they go to
+the "paths" list of the kernels line.  The plain versions are not run
+again on these paths: step 4 holds each SpTRSV kernel against its own.
+
 Then Zamba2-2.7B serving at full width (54 Mamba2 layers, d_model 2560,
 vocab 32,000, bf16, seeded random weights), through launch/serve.py:
 8 requests x 1000 prompt tokens, then 32 greedy decode steps:
 
-  7. the same prefill on the kernels and on the plain path
+  12. the same prefill on the kernels and on the plain path
      (use_kernels=False): in bf16 the last position's logits may differ by
      no more than twice the rounding floor (the plain path against itself
      with attention summed in the twin's order), and in f32 (the same
      seed's weights unrounded) by 1e-4 relative L2 at most; the first scan
-     and attention launch's inputs are kept for step 9;
-  8. serving: the launch counts of prefill (54 scan, 9 attention) and of
+     and attention launch's inputs are kept for step 14;
+  13. serving: the launch counts of prefill (54 scan, 9 attention) and of
      decode (none), tokens inside the vocabulary, finite logits, and the
      server's prefill and decode tokens/s over SERVE_RUNS runs (the first
      is the counted one);
-  9. each kernel against its plain twin on the first layer's real inputs
+  14. each kernel against its plain twin on the first layer's real inputs
      (scan f32: 2e-4 of max|plain|; attention bf16: 2e-2 of max|plain|),
      its time (CUDA events), its plain twin's (one run), the bound of the
      card for the same bytes and flops (the scan's also as 3xTF32 on the
@@ -54,8 +83,9 @@ vocab 32,000, bf16, seeded random weights), through launch/serve.py:
      scaled_dot_product_attention on the same tensors (a yardstick the
      port never calls).
 
-Launch counters are set to 0 right before each main-path run and read
-right after it.  It prints one {"kernels": [...]} line and, last,
+Launch counters are set to 0 right before each main-path run (and each
+path of steps 7-11) and read right after it.  It prints one
+{"kernels": [...], "paths": [...]} line and, last,
 {"ok": true, "device": {...}}; any failed check raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing a result.
@@ -163,6 +193,59 @@ def _event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _staged_launch(prog, core, bmat):
+    """The kernel launch that ``core`` (a `ops.build_solver_cols` closure)
+    makes, on its staged instruction tensors and ``bmat`` padded as it pads
+    it: ``(name, launch, plain, bp, kw)``, with ``plain`` the kernel's plain
+    version on the same inputs and ``kw`` the keywords both take."""
+    import torch
+
+    from repro_torch.core.executor import _psum_slots
+    from repro_torch.kernels.sptrsv import kernel, ops
+
+    instr, values = core.staged
+    blocked = core.placement == "blocked"
+    bp = torch.zeros((core.plan.n_hbm if blocked else prog.n + 1, bmat.shape[1]),
+                     dtype=torch.float32, device=instr.device)
+    bp[:prog.n] = torch.as_tensor(bmat, dtype=torch.float32).to(instr.device)
+    kw = {"num_slots": _psum_slots(prog)}
+    if blocked:
+        kw.update(window=core.plan.window, stride=core.plan.stride, cycles_per_block=128)
+        name, wrapper, plain = ("sptrsv_cuda_blocked", kernel.sptrsv_cuda_blocked,
+                                kernel.sptrsv_blocked_plain)
+        kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA)
+    else:
+        name, wrapper, plain = "sptrsv_cuda", kernel.sptrsv_cuda, kernel.sptrsv_plain
+        kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA, x_in_smem=core.x_in_smem)
+    return (name, lambda: wrapper(instr, values, bp, **kernel_kw),
+            lambda: plain(instr, values, bp, **kw), bp, kw)
+
+
+def _sptrsv_bound_ms(prog, nb):
+    """(bound ms, "bytes" or "operations") of a solve of ``nb`` columns: the
+    instruction stream read once, b read and x written once, 2 flops per
+    non-zero and column (the diagonal's included)."""
+    nbytes = prog.cycles * prog.num_cus * prog.instr_bytes_per_lane_cycle() + 2 * prog.n * nb * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * prog.stats.nnz * nb / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _library_solve(rowptr, colidx, values, bdev, upper):
+    """cuSPARSE's triangular solve (torch.triangular_solve on a sparse CSR
+    tensor; a yardstick the port never calls): (x, ms by CUDA events)."""
+    import numpy as np
+    import torch
+
+    n = len(rowptr) - 1
+    a = torch.sparse_csr_tensor(
+        torch.from_numpy(np.asarray(rowptr, np.int64)),
+        torch.from_numpy(np.asarray(colidx, np.int64)),
+        torch.from_numpy(np.asarray(values, np.float32)), size=(n, n)).cuda()
+    x = torch.triangular_solve(bdev, a, upper=upper).solution
+    return x, _event_ms(lambda: torch.triangular_solve(bdev, a, upper=upper), 10)
+
+
 def main() -> int:
     import torch
 
@@ -173,7 +256,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import api, dag
-    from repro_torch.core.executor import _psum_slots, execute_numpy
+    from repro_torch.core.executor import execute_numpy
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attention import kernel as attn_kernel
     from repro_torch.kernels.sptrsv import kernel, ops
@@ -205,8 +288,6 @@ def main() -> int:
 
     wrappers = {"sptrsv_cuda": kernel.sptrsv_cuda,
                 "sptrsv_cuda_blocked": kernel.sptrsv_cuda_blocked}
-    plains = {"sptrsv_cuda": kernel.sptrsv_plain,
-              "sptrsv_cuda_blocked": kernel.sptrsv_blocked_plain}
     entries = []
     for name, placement, kname in (("band_huge64k", "blocked", "sptrsv_cuda_blocked"),
                                    ("ckt_huge32k", "resident", "sptrsv_cuda")):
@@ -243,21 +324,12 @@ def main() -> int:
 
         # -- kernel vs its plain version, on the main path's staged inputs ----
         core = ops.build_solver_cols(prog, B, device="cuda")
-        instr, values = core.staged
-        n_rows = prog.n + 1 if placement == "resident" else core.plan.n_hbm
-        bp = torch.zeros((n_rows, B), dtype=torch.float32, device="cuda")
-        bp[:prog.n] = torch.from_numpy(bmat).cuda()
-        kw = {"num_slots": _psum_slots(prog)}
-        if placement == "blocked":
-            kw.update(window=core.plan.window, stride=core.plan.stride,
-                      cycles_per_block=128)
-        kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA)
-        if placement == "resident":
-            kernel_kw["x_in_smem"] = core.x_in_smem
+        assert core.placement == placement, (name, core.placement)
+        _, launch, plain, bp, kw = _staged_launch(prog, core, bmat)
         smem = ops.state_bytes(prog, placement=placement, plan=core.plan)
-        xk = wrappers[kname](instr, values, bp, **kernel_kw)
+        xk = launch()
         t0 = time.perf_counter()
-        xp = plains[kname](instr, values, bp, **kw)
+        xp = plain()
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         max_err = _close(xk[:prog.n].cpu().numpy(), xp[:prog.n].cpu().numpy(),
@@ -265,6 +337,7 @@ def main() -> int:
         if placement == "resident":
             # the same kernel with x in device memory (as for a vector too
             # large for shared memory) and two columns per CTA
+            instr, values = core.staged
             xg = wrappers[kname](instr, values, bp,
                                  **dict(kw, x_in_smem=False, cols_per_cta=2))
             err_g = _close(xg[:prog.n].cpu().numpy(), xp[:prog.n].cpu().numpy(),
@@ -274,28 +347,18 @@ def main() -> int:
 
         # -- times -----------------------------------------------------------
         for _ in range(2):
-            wrappers[kname](instr, values, bp, **kernel_kw)
-        fn = lambda: wrappers[kname](instr, values, bp, **kernel_kw)
-        ms = _event_ms(fn, 10)
-        sm_mhz, power_limit = _sm_clock_under_load(fn, max(20, int(600 / ms)))
-        lib = torch.sparse_csr_tensor(
-            torch.from_numpy(mat.rowptr), torch.from_numpy(mat.colidx),
-            torch.from_numpy(mat.values.astype(np.float32)), size=(mat.n, mat.n),
-        ).cuda()
-        bdev = bp[:prog.n].contiguous()
-        xl = torch.triangular_solve(bdev, lib, upper=False).solution
+            launch()
+        ms = _event_ms(launch, 10)
+        sm_mhz, power_limit = _sm_clock_under_load(launch, max(20, int(600 / ms)))
+        xl, library_ms = _library_solve(mat.rowptr, mat.colidx, mat.values,
+                                        bp[:prog.n].contiguous(), upper=False)
         _close(xl.cpu().numpy(), serial, f"{name} library solve vs serial_solve")
-        library_ms = _event_ms(lambda: torch.triangular_solve(bdev, lib, upper=False), 10)
-        nbytes = (prog.cycles * prog.num_cus * prog.instr_bytes_per_lane_cycle()
-                  + 2 * mat.n * B * 4)
-        flops = 2 * mat.nnz * B
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        bound_ms, bound_by = _sptrsv_bound_ms(prog, B)
         entries.append({
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[kname], "launches": launches[kname],
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "matrix": name, "B": B,
             "placement": placement, "emitted_cycles": prog.cycles, "dag_levels": levels,
             "solve_ms": solve_ms, "make_solver_overhead_ms": solve_ms - ms,
@@ -309,15 +372,227 @@ def main() -> int:
               f"clocks.sm {sm_mhz:.0f} MHz under load, power.limit {power_limit:.0f} W), "
               f"{ops.COLS_PER_CTA} columns per CTA, shared memory per CTA {smem}, "
               f"plain {plain_ms:.1f} ms, library {library_ms:.4f} ms, bound "
-              f"{max(t_bytes, t_ops):.6f} ms, make_solver adds {solve_ms - ms:.4f} ms",
+              f"{bound_ms:.6f} ms, make_solver adds {solve_ms - ms:.4f} ms",
               flush=True)
 
+    paths, launches_by_path = solve_api_phase(wrappers)
+    for e in entries:
+        e["launches_by_path"] = {path: n[e["name"]] for path, n in launches_by_path.items()}
     entries += serve_phase()
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": entries, "paths": paths}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _drive(wrappers, what, fn):
+    """``fn()`` with every SpTRSV launch count set to 0 just before and read
+    just after: (its result, {kernel: launches})."""
+    import torch
+
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"{what}: launches {launches}", flush=True)
+    return out, launches
+
+
+def _sweep_entry(path, prog, solver, sweep_input, library, library_ref, rows=slice(None)):
+    """Times of one sweep's kernel on its staged inputs, as the path's
+    solver launches it: CUDA events over 10 launches after a warm-up, the
+    SM clock under load, the bound, and cuSPARSE on the same triangle
+    (``library`` = rowptr, colidx, values, b on the card, upper), whose x
+    (rows ``rows``) is held against ``library_ref``, the path's x."""
+    import numpy as np
+
+    from repro_torch.kernels.sptrsv import ops
+
+    core = ops.build_solver_cols(prog, B, device="cuda")
+    assert (core.placement, core.x_in_smem) == (solver.placement, solver.x_in_smem)
+    kname, launch, _, _, _ = _staged_launch(prog, core, sweep_input)
+    for _ in range(2):
+        launch()
+    ms = _event_ms(launch, 10)
+    sm_mhz, power_limit = _sm_clock_under_load(launch, max(20, int(600 / ms)))
+    *csr, bdev, upper = library
+    xl, library_ms = _library_solve(*csr, bdev, upper)
+    bound_ms, bound_by = _sptrsv_bound_ms(prog, B)
+    where = "shared" if core.x_in_smem else "device"
+    print(f"{kname} on {path}: {ms:.4f} ms ({ms * 1e3 / prog.cycles:.4f} us, "
+          f"{ms * 1e3 / prog.cycles * sm_mhz:.1f} SM clocks per emitted cycle at "
+          f"clocks.sm {sm_mhz:.0f} MHz under load, power.limit {power_limit:.0f} W), "
+          f"{prog.cycles} emitted cycles, placement {core.placement}, x in {where} "
+          f"memory, library (upper={upper}) {library_ms:.4f} ms, bound {bound_ms:.6f} ms",
+          flush=True)
+    return {
+        "path": path, "name": kname, "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES[kname], "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_upper": upper,
+        "library_max_abs_err": float(np.abs(xl.cpu().numpy()[rows] - library_ref).max()),
+        "n": prog.n, "nnz": prog.stats.nnz, "B": B, "emitted_cycles": prog.cycles,
+        "placement": core.placement, "x_in_smem": core.x_in_smem,
+        "smem_bytes_per_cta": ops.state_bytes(prog, placement=core.placement,
+                                              plan=core.plan),
+        "us_per_cycle": ms * 1e3 / prog.cycles,
+        "sm_clock_mhz": sm_mhz, "power_limit_w": power_limit,
+        "sm_clocks_per_cycle": ms * 1e3 / prog.cycles * sm_mhz,
+    }
+
+
+def _timed_solve_ms(fn, reps=3):
+    """Host ms of ``fn()`` (numpy in, numpy out, so synchronised), after a
+    warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def solve_api_phase(wrappers):
+    """The rest of the solve API through the SpTRSV kernels at full size
+    (steps 7-11): transpose pairs, a circuit, a split solve, a program saved
+    and loaded with verification, and its static analysis.  Returns the
+    paths' entries and {path: {kernel: launches}}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.csr import serial_solve, serial_solve_upper, transpose_upper
+    from repro_torch.core.frontends import random_circuit
+
+    paths, launches_by_path = [], {}
+    cuda = dict(backend="cuda", placement="auto")
+
+    def finish(path, fn, launches, want, entries, x, ref, what, t_compile):
+        """Hold the path's x against its float64 oracle and its launches
+        against ``want``; time the path through its entry point."""
+        launches_by_path[path] = launches
+        assert launches == want, (path, launches, want)
+        err = _close(x, ref, what)
+        solve_ms = _timed_solve_ms(fn)
+        for e in entries:
+            e.update(launches=launches[e["name"]], max_abs_err_vs_float64=err,
+                     solve_ms=solve_ms, compile_s=t_compile,
+                     solve_overhead_ms=solve_ms - sum(f["ms"] for f in entries))
+        paths.extend(entries)
+        print(f"{path}: compile {t_compile:.2f} s, through the entry point "
+              f"{solve_ms:.4f} ms, max abs err vs float64 {err:.3e}", flush=True)
+
+    # -- 7-8. IC preconditioner application: Ly=b then Lᵀx=y ----------------
+    for name, sweeps in (("band_huge64k", [("blocked", True), ("resident", False)]),
+                         ("ckt_huge32k", [("resident", True), ("resident", True)])):
+        mat = api.matrix(name)
+        t0 = time.perf_counter()
+        pair = api.compile_pair(mat)
+        t_compile = time.perf_counter() - t0
+        solvers = [api.make_solver(cw.program, batch=B, **cuda)
+                   for cw in (pair.forward, pair.backward)]
+        assert [(s.placement, s.x_in_smem) for s in solvers] == sweeps, name
+        bmat = np.random.default_rng(SEED).standard_normal((mat.n, B)).astype(np.float32)
+        path = f"{name} pair"
+        x, launches = _drive(wrappers, path, lambda: pair.solve(bmat, **cuda))
+        assert x.shape == (mat.n, B) and np.isfinite(x).all(), path
+        u = transpose_upper(mat)
+        y = np.stack([serial_solve(mat, bmat[:, i]) for i in range(B)], 1)
+        ref = np.stack([serial_solve_upper(u, y[:, i]) for i in range(B)], 1)
+        y_k = pair.forward.solve(bmat, **cuda)
+        _close(y_k, y, f"{path}: forward sweep vs serial_solve")
+        entries = [
+            _sweep_entry(f"{path} forward", pair.forward.program, solvers[0], bmat,
+                         (mat.rowptr, mat.colidx, mat.values,
+                          torch.from_numpy(bmat).cuda(), False), y_k),
+            _sweep_entry(f"{path} backward", pair.backward.program, solvers[1],
+                         y_k[pair.backward.perm], (u.rowptr, u.colidx, u.values,
+                                                   torch.from_numpy(y_k).cuda(), True), x),
+        ]
+        want = ({"sptrsv_cuda": 1, "sptrsv_cuda_blocked": 1} if name == "band_huge64k"
+                else {"sptrsv_cuda": 2, "sptrsv_cuda_blocked": 0})
+        finish(path, lambda: pair.solve(bmat, **cuda), launches, want, entries, x, ref,
+               f"{path} vs serial_solve + serial_solve_upper", t_compile)
+        if name == "band_huge64k":
+            band_backward, band_backward_in = pair.backward.program, y_k[pair.backward.perm]
+
+    # -- 9. a DPU-v2-style circuit at the paper's largest node count ----------
+    n = 85392
+    circ = random_circuit(n, max_fan_in=6, seed=n, locality=max(32, n // 16),
+                          name=f"circ_{n}")
+    t0 = time.perf_counter()
+    cw = api.compile_circuit(circ)
+    t_compile = time.perf_counter() - t0
+    solver = api.make_solver(cw.program, batch=B, **cuda)
+    assert (solver.placement, solver.x_in_smem) == ("resident", False), solver.placement
+    umat = np.random.default_rng(SEED).standard_normal((n, B)).astype(np.float32)
+    path = f"circuit n={n}"
+    x, launches = _drive(wrappers, path, lambda: cw.solve(umat, **cuda))
+    assert x.shape == (n, B) and np.isfinite(x).all(), path
+    # the circuit as the lower-triangular system its program solves:
+    # 1 / scale on the diagonal, the negated weights below it
+    rowptr = circ.ptr + np.arange(n + 1)
+    diag = rowptr[1:] - 1
+    off = np.ones(rowptr[-1], bool)
+    off[diag] = False
+    colidx, values = np.empty(rowptr[-1], np.int64), np.empty(rowptr[-1])
+    colidx[off], values[off] = circ.src, -circ.weight
+    colidx[diag], values[diag] = np.arange(n), 1.0 / circ.scale
+    entry = _sweep_entry(path, cw.program, solver, umat,
+                         (rowptr, colidx, values, torch.from_numpy(umat).cuda(), False), x)
+    finish(path, lambda: cw.solve(umat, **cuda), launches,
+           {"sptrsv_cuda": 1, "sptrsv_cuda_blocked": 0}, [entry], x, circ.eval(umat),
+           f"{path} vs circ.eval", t_compile)
+
+    # -- 10. node splitting on the suite's hub matrix -------------------------
+    mat = api.matrix("hub_wall_big")
+    t0 = time.perf_counter()
+    prog, split = api.compile_split(mat, max_indegree=64)
+    t_compile = time.perf_counter() - t0
+    assert split.n_aux > 0, "hub_wall_big has no heavy rows to split"
+    solver = api.make_solver(prog, batch=B, **cuda)
+    assert (solver.placement, solver.x_in_smem) == ("resident", True), solver.placement
+    bmat = np.random.default_rng(SEED).standard_normal((mat.n, B)).astype(np.float32)
+    path = f"hub_wall_big split (max in-degree 64, {split.n_aux} auxiliary rows)"
+    x, launches = _drive(wrappers, path, lambda: api.solve_split(prog, split, bmat, **cuda))
+    assert x.shape == (mat.n, B) and np.isfinite(x).all(), path
+    eb, sm = split.expand_rhs(bmat), split.mat
+    entry = _sweep_entry(path, prog, solver, eb,
+                         (sm.rowptr, sm.colidx, sm.values, torch.from_numpy(eb).cuda(), False),
+                         x, rows=split.orig_index)
+    ref = np.stack([serial_solve(mat, bmat[:, i]) for i in range(B)], 1)
+    finish(path, lambda: api.solve_split(prog, split, bmat, **cuda), launches,
+           {"sptrsv_cuda": 1, "sptrsv_cuda_blocked": 0}, [entry], x, ref,
+           f"{path} vs serial_solve of the unsplit matrix", t_compile)
+
+    # -- 11. compile once, save, load with verification, serve ---------------
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        blob = os.path.join(tmp, "band_huge64k_backward.prog")
+        api.save_program(band_backward, blob)
+        t0 = time.perf_counter()
+        loaded = api.load_program(blob, verify=True)
+        t_load = time.perf_counter() - t0
+    path = "band_huge64k pair backward, loaded"
+    x, launches = _drive(wrappers, path,
+                         lambda: api.solve_batch(loaded, band_backward_in, **cuda))
+    launches_by_path[path] = launches
+    assert launches == {"sptrsv_cuda": 1, "sptrsv_cuda_blocked": 0}, launches
+    assert np.array_equal(x, api.solve_batch(band_backward, band_backward_in, **cuda)), \
+        "the loaded program solved to other bits than the compiled one"
+    t0 = time.perf_counter()
+    report = api.analyze_program(band_backward)
+    t_analyze = time.perf_counter() - t0
+    assert report.ok(), report.render()
+    codes = sorted(report.codes())
+    print(f"{path}: load_program(verify=True) {t_load:.3f} s; x bit-identical to the "
+          f"compiled program's; analyze_program {t_analyze:.3f} s, no error, lint codes "
+          f"{codes}", flush=True)
+    paths.append({"path": path, "name": "sptrsv_cuda", "launches": 1,
+                  "load_verify_s": t_load, "analyze_s": t_analyze, "lint_codes": codes,
+                  "bit_identical": True})
+    return paths, launches_by_path
 
 
 def _rel_l2(got, ref):
@@ -334,7 +609,7 @@ def _tap(calls, fn):
 
 
 def serve_phase():
-    """Zamba2-2.7B served at full width on the kernels (steps 6-8)."""
+    """Zamba2-2.7B served at full width on the kernels (steps 12-14)."""
     import dataclasses
 
     import torch
@@ -355,7 +630,7 @@ def serve_phase():
           f"{cfg.dtype}, {n_params / 1e9:.3f} B parameters, set up in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # -- 6. kernel path vs plain path; keeps the first launches' inputs ------
+    # -- 12. kernel path vs plain path; keeps the first launches' inputs -----
     scan_calls, attn_calls = [], []
     scan_ops.chunked_scan_cuda = _tap(scan_calls, scan_kernel.chunked_scan_cuda)
     attn_ops.flash_attention_cuda = _tap(attn_calls, attn_kernel.flash_attention_cuda)
@@ -401,7 +676,7 @@ def serve_phase():
     del model32, l32k, l32p
     torch.cuda.empty_cache()
 
-    # -- 7. the main path: serve.run ------------------------------------------
+    # -- 13. the main path: serve.run -----------------------------------------
     wrappers = {"chunked_scan_cuda": scan_kernel.chunked_scan_cuda,
                 "flash_attention_cuda": attn_kernel.flash_attention_cuda}
     for w in wrappers.values():
@@ -420,7 +695,7 @@ def serve_phase():
     rates = {key: [r[key] for r in runs]
              for key in ("prefill_tokens_per_s", "decode_tokens_per_s")}
 
-    # -- 8. each kernel vs its plain twin on the first layer's inputs; times --
+    # -- 14. each kernel vs its plain twin on the first layer's inputs; times -
     entries = []
     (q, k, v, w, s0), kw = scan_calls[0]
     y, sf = scan_kernel.chunked_scan_cuda(q, k, v, w, s0, **kw)

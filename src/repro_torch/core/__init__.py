@@ -1,10 +1,12 @@
 """Core library of the port: compiler, `Program` format, executors, api.
 
-The compiler, `Program`, CSR and the matrix suite are numpy-only copies of
-the JAX package's modules; `executor` and `api` run on torch.
+The compiler and its frontends, `Program`, CSR, the matrix suite, the
+coarse/fine baselines, node splitting (`transform`), static analysis
+(`analysis`), `serialize` and `robust.verify_program` are numpy-only
+copies of the JAX package's modules; `executor` and `api` run on torch.
 """
 
-from . import api, compiler, dag, frontends, matrices  # noqa: F401
+from . import analysis, api, compiler, dag, frontends, matrices  # noqa: F401
 from .compiler import ComputeDag, compile_dag  # noqa: F401
 from .csr import TriCSR, UpperCSR, serial_solve, serial_solve_upper  # noqa: F401
 from .program import AccelConfig, Program, ScheduleStats  # noqa: F401
@@ -15,3 +17,4 @@ from .executor import (  # noqa: F401
     make_torch_executor,
     pad_batch,
 )
+from .fine import FineConfig, schedule_fine  # noqa: F401

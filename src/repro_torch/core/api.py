@@ -1,6 +1,6 @@
 """Public API of the port's SpTRSV core library.
 
-Ports `repro/core/api.py` (the lower-triangular solve path):
+Ports `repro/core/api.py`:
 
     from repro_torch.core import api
     mat = api.matrix("ckt_add20")
@@ -10,11 +10,39 @@ Ports `repro/core/api.py` (the lower-triangular solve path):
     solver = api.make_solver(prog, batch=32, backend="cuda")  # cached closure
     api.report(prog)                             # paper metrics
 
+DAG-workload frontends (DESIGN.md §6): SpTRSV-like workloads beyond Lx=b
+compile to the same `Program` format and run on every executor and both
+kernels:
+
+    cw = api.compile_upper(U)                    # Ux=b (UpperCSR)
+    x = cw.solve(b, backend="cuda")              # or api.solve_upper(cw, b)
+    pair = api.compile_pair(L)                   # Ly=b then Lᵀx=y (IC sweep)
+    x = pair.solve(b, backend="cuda")
+    cw = api.compile_circuit(circ)               # general DAG circuit
+    y = cw.solve(u, backend="cuda")
+    prog, split = api.compile_split(L)           # heavy rows split
+    x = api.solve_split(prog, split, b, backend="cuda")
+
+Compile once, serve many (DESIGN.md §7): `save_program` / `load_program`
+round-trip a compiled `Program` through the versioned, CRC32-checksummed
+on-disk format (`core.serialize`, the JAX package's format byte for byte);
+a damaged blob raises `ProgramCorruptionError` and never executes, and
+``load_program(verify=True)`` also runs the hazard analysis
+(`verify_program`).  Static analysis (DESIGN.md §8): every compile entry
+point takes ``verify_ir=True`` (per-pass IR contracts, raising
+`errors.IRValidationError` naming the guilty pass) and `analyze_program`
+returns an `analysis.AnalysisReport` of hazards and SPT2xx lints:
+
+    api.save_program(prog, "ckt.prog")
+    prog = api.load_program("ckt.prog")          # CRC + structural verify
+    report = api.analyze_program(prog)           # report.ok(), .render()
+
 Every entry point runs on the CUDA device unless the caller passes
 ``device="cpu"`` (a machine without CUDA raises instead of falling back).
 Two backends: ``"torch"`` (the eager per-cycle executor, any device) and
 ``"cuda"`` (the hand-written kernels; on ``device="cpu"`` their plain
-PyTorch versions).  Executors are cached per (program identity, padded
+PyTorch versions); `CompiledWorkload.solve` also takes ``"numpy"`` (the
+float64 oracle).  Executors are cached per (program identity, padded
 batch width, knobs, device), so repeated solves never rebuild.
 
 ``mesh=`` (multi-GPU column sharding) raises ``NotImplementedError`` until
@@ -23,14 +51,20 @@ the port has a multi-device path.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from . import matrices
+from .compiler import ComputeDag, compile_dag as _compile_dag
 from .csr import (  # noqa: F401  (random_rhs re-exported for callers)
     TriCSR,
+    UpperCSR,
     random_rhs,
     serial_solve,
+    transpose_upper,
 )
+from .dag import DagInfo, analyze  # noqa: F401  (analyze is public API)
 from .executor import (
     as_batch,
     execute_numpy,
@@ -39,6 +73,9 @@ from .executor import (
     make_torch_executor,
     validate_backend,
 )
+from .fine import FineConfig, FineStats, schedule_fine
+from .frontends.dagcirc import DagCircuit, lower_circuit
+from .frontends.upper import lower_upper
 from .program import AccelConfig, Program
 from .schedule import compile_program
 
@@ -46,15 +83,33 @@ __all__ = [
     "matrix",
     "compile",
     "recompile_values",
+    "compile_dag",
+    "compile_upper",
+    "compile_pair",
+    "compile_circuit",
+    "compile_split",
     "solve",
     "solve_batch",
+    "solve_upper",
+    "solve_pair",
+    "solve_split",
     "make_solver",
     "solve_numpy",
     "reference_solve",
     "report",
+    "baseline_coarse",
+    "baseline_fine",
+    "save_program",
+    "load_program",
+    "verify_program",
+    "analyze_program",
     "AccelConfig",
     "Program",
+    "CompiledWorkload",
+    "SolvePair",
     "TriCSR",
+    "UpperCSR",
+    "DagInfo",
 ]
 
 
@@ -66,8 +121,8 @@ def compile(mat: TriCSR, cfg: AccelConfig | None = None, *,  # noqa: A001
             schedule: str = "paper",
             verify_ir: bool = False) -> Program:
     """Compile ``mat``; ``schedule="auto"`` picks the predicted-cheapest
-    scheduler strategy per matrix (`compiler.strategies`).  ``verify_ir``
-    raises ``NotImplementedError`` until the port has ``core.analysis``."""
+    scheduler strategy per matrix (`compiler.strategies`, DESIGN.md §11);
+    ``verify_ir=True`` runs the per-pass IR contract verifiers."""
     return compile_program(mat, cfg, schedule=schedule, verify_ir=verify_ir)
 
 
@@ -144,6 +199,175 @@ def make_solver(prog: Program, batch: int | None = None, mesh=None,
     return make_torch_executor(prog, batch=batch, **backend_opts)
 
 
+# ---------------------------------------------------------------------------
+# DAG-workload frontends (DESIGN.md §6): upper / transpose / circuit solves
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(eq=False)
+class CompiledWorkload:
+    """A compiled frontend workload: `Program` + internal↔user index map.
+
+    Frontends whose internal node numbering differs from the user's
+    unknowns (e.g. the reversed upper-triangular solve) carry ``perm``:
+    internal node ``k`` solves user unknown ``perm[k]``, so the program
+    consumes ``b[perm]`` and its solution scatters back through ``perm``.
+    ``perm=None`` means the identity (lower-tri, circuits).
+
+    `solve` accepts ``[n]`` or ``[n, B]`` right-hand sides and returns a
+    numpy array.  ``backend`` is ``"numpy"`` (the float64 oracle, no
+    options), ``"torch"`` or ``"cuda"`` with the keywords of `solve_batch`
+    (``device=``, and for ``"cuda"`` the placement knobs of `make_solver`):
+    the emitted `Program` format is unchanged, so every execution path
+    works on every frontend workload.
+    """
+
+    program: Program
+    perm: np.ndarray | None = None
+    name: str = ""
+
+    def solve(self, b: np.ndarray, *, backend: str = "torch", mesh=None,
+              **backend_opts) -> np.ndarray:
+        b = np.asarray(b)
+        single = b.ndim == 1
+        bi = b[self.perm] if self.perm is not None else b
+        if backend == "numpy":
+            if mesh is not None or backend_opts:
+                raise ValueError("backend='numpy' takes no mesh/extra options")
+            xi = execute_numpy(self.program, bi)
+        else:
+            xi = solve_batch(self.program, bi, mesh=mesh, backend=backend,
+                             **backend_opts)
+            if single:
+                xi = xi[:, 0]
+        if self.perm is None:
+            return xi
+        x = np.empty_like(xi)
+        x[self.perm] = xi
+        return x
+
+
+@dataclasses.dataclass(eq=False)
+class SolvePair:
+    """Forward+backward sweep pair: Ly=b then Lᵀx=y from ONE factor L.
+
+    One incomplete-Cholesky preconditioner application is
+    ``x = Lᵀ \\ (L \\ b)``; `compile_pair` compiles both sweeps once and
+    this object replays them per application (any backend/placement knobs
+    are shared by both sweeps).
+    """
+
+    forward: CompiledWorkload   # Ly=b (identity perm)
+    backward: CompiledWorkload  # Lᵀx=y (reversed node order)
+
+    def solve(self, b: np.ndarray, **opts) -> np.ndarray:
+        return self.backward.solve(self.forward.solve(b, **opts), **opts)
+
+
+def compile_dag(dag: ComputeDag, cfg: AccelConfig | None = None, *,
+                planes: int | None = None,
+                schedule: str = "paper",
+                verify_ir: bool = False) -> Program:
+    """Compile a generic `compiler.ComputeDag` through the staged pipeline.
+
+    ``schedule`` picks the schedule pass — ``"paper"``, an alternative
+    strategy name, or ``"auto"`` for per-matrix cost-model selection
+    (DESIGN.md §11).  ``verify_ir=True`` runs the per-pass contract
+    verifiers between stages (`core/analysis/`) and raises
+    `errors.IRValidationError` naming the guilty pass on the first broken
+    invariant.
+    """
+    return _compile_dag(dag, cfg, planes=planes, schedule=schedule,
+                        verify_ir=verify_ir)
+
+
+def compile_upper(mat: UpperCSR, cfg: AccelConfig | None = None, *,
+                  planes: int | None = None,
+                  schedule: str = "paper",
+                  verify_ir: bool = False) -> CompiledWorkload:
+    """Compile the upper-triangular solve Ux=b (CSC-row reversal frontend)."""
+    dag, perm = lower_upper(mat)
+    return CompiledWorkload(_compile_dag(dag, cfg, planes=planes,
+                                         schedule=schedule,
+                                         verify_ir=verify_ir),
+                            perm=perm, name=mat.name)
+
+
+def compile_pair(mat: TriCSR, cfg: AccelConfig | None = None, *,
+                 planes: int | None = None,
+                 schedule: str = "paper",
+                 verify_ir: bool = False) -> SolvePair:
+    """Compile the forward (Ly=b) + backward (Lᵀx=y) sweep pair of ``mat``."""
+    fwd = CompiledWorkload(compile_program(mat, cfg, planes=planes,
+                                           schedule=schedule,
+                                           verify_ir=verify_ir),
+                           name=mat.name)
+    bwd = compile_upper(transpose_upper(mat), cfg, planes=planes,
+                        schedule=schedule, verify_ir=verify_ir)
+    return SolvePair(forward=fwd, backward=bwd)
+
+
+def compile_circuit(circ: DagCircuit, cfg: AccelConfig | None = None, *,
+                    planes: int | None = None,
+                    schedule: str = "paper",
+                    verify_ir: bool = False) -> CompiledWorkload:
+    """Compile a general DAG circuit (`frontends.dagcirc`) workload."""
+    return CompiledWorkload(_compile_dag(lower_circuit(circ), cfg,
+                                         planes=planes, schedule=schedule,
+                                         verify_ir=verify_ir),
+                            name=circ.name)
+
+
+def solve_upper(cw: CompiledWorkload | UpperCSR, b: np.ndarray,
+                **opts) -> np.ndarray:
+    """Solve Ux=b; accepts a `CompiledWorkload` (preferred — reuses the
+    compile) or a raw `UpperCSR` (compiled ad hoc)."""
+    if isinstance(cw, UpperCSR):
+        cw = compile_upper(cw)
+    return cw.solve(b, **opts)
+
+
+def solve_pair(pair: SolvePair, b: np.ndarray, **opts) -> np.ndarray:
+    """Run one forward+backward preconditioner application through `pair`."""
+    return pair.solve(b, **opts)
+
+
+def save_program(prog: Program, path) -> None:
+    """Persist a compiled program in the checksummed on-disk format
+    (`core.serialize`, DESIGN.md §7) for compile-once/serve-many reuse."""
+    from .serialize import save_program as _save
+
+    _save(prog, path)
+
+
+def load_program(path, *, verify: bool = True) -> Program:
+    """Load a program saved by `save_program`; CRC mismatches and (with
+    ``verify=True``) structural violations raise `ProgramCorruptionError`."""
+    from .serialize import load_program as _load
+
+    return _load(path, verify=verify)
+
+
+def verify_program(prog: Program) -> None:
+    """Structurally validate a compiled program (`core.robust`); raises
+    `ProgramCorruptionError` on the first violated invariant."""
+    from .robust import verify_program as _verify
+
+    _verify(prog)
+
+
+def analyze_program(prog: Program, *, lint: bool = True):
+    """Full static analysis of a compiled program (`core.analysis`).
+
+    Returns an `analysis.AnalysisReport`: correctness diagnostics (the
+    same hazard checks `verify_program` raises on, collected instead of
+    raised) plus, with ``lint=True``, the SPT2xx performance lints.
+    ``report.ok()`` is True when no error-severity diagnostic was found;
+    ``report.render()`` / ``report.to_json()`` render it.
+    """
+    from .analysis import analyze_program as _analyze
+
+    return _analyze(prog, lint=lint)
+
+
 def solve_numpy(prog: Program, b: np.ndarray) -> np.ndarray:
     """Reference numpy executor; accepts ``[n]`` or ``[n, B]`` like `solve`."""
     return execute_numpy(prog, b)
@@ -180,3 +404,41 @@ def report(prog: Program) -> dict:
     if getattr(st, "schedule_costs", None):
         out["schedule_costs"] = st.schedule_costs
     return out
+
+
+def compile_split(mat: TriCSR, cfg: AccelConfig | None = None,
+                  max_indegree: int = 64):
+    """Beyond-paper path: split heavy nodes (core.transform), then compile.
+
+    Returns (program, split_result); solve with `solve_split`, which
+    accepts single (``[n]``) and batched (``[n, B]``) right-hand sides.
+    """
+    from .transform import split_heavy_nodes
+
+    split = split_heavy_nodes(mat, max_indegree=max_indegree)
+    return compile_program(split.mat, cfg), split
+
+
+def solve_split(prog: Program, split, b: np.ndarray, mesh=None,
+                backend: str = "torch", **backend_opts) -> np.ndarray:
+    """Solve through a node-splitting transform; ``b`` is ``[n]`` or ``[n, B]``.
+
+    `SplitResult.expand_rhs` / `extract` preserve a trailing batch axis, so
+    node splitting composes with the batched executors and with the
+    kernels' placements (``backend="cuda"`` + `make_solver` knobs,
+    including the row-blocked large-n regime).  Returns a numpy array.
+    """
+    eb = split.expand_rhs(np.asarray(b))
+    x = solve_batch(prog, eb, mesh=mesh, backend=backend, **backend_opts)
+    return split.extract(x[:, 0] if eb.ndim == 1 else x)
+
+
+def baseline_coarse(mat: TriCSR, base: AccelConfig | None = None) -> Program:
+    cfg = base or AccelConfig()
+    return compile_program(
+        mat, dataclasses.replace(cfg, dataflow="coarse", icr=False, psum_cache=False)
+    )
+
+
+def baseline_fine(mat: TriCSR, cfg: FineConfig | None = None) -> FineStats:
+    return schedule_fine(mat, cfg)

@@ -70,27 +70,42 @@ def compile_dag(dag: ComputeDag, cfg: AccelConfig | None = None, *,
     predictions in ``stats.schedule_costs``); auto's selection overhead is
     a synthetic ``"strategy_select"`` entry on ``pass_stats``.
 
-    ``verify_ir=True`` (the per-pass contract verifiers of the JAX
-    package's ``core/analysis``) raises ``NotImplementedError``: the port
-    has no ``core.analysis`` yet.
+    ``verify_ir=True`` runs the per-pass contract verifiers
+    (`core/analysis/contracts.py`) on every intermediate IR and raises
+    `errors.IRValidationError` naming the guilty pass on the first broken
+    invariant; the verifier wall-clock is appended to ``pass_stats`` as a
+    synthetic ``"verify_ir"`` entry so the overhead stays observable.
     """
     cfg = cfg or AccelConfig()
     t0 = time.perf_counter()
 
     if verify_ir:
-        # the per-pass contract verifiers live in core/analysis, which the
-        # port does not carry yet
-        raise NotImplementedError(
-            "verify_ir=True needs core.analysis (the per-pass contract "
-            "verifiers), which repro_torch does not port yet")
+        from ..analysis import contracts
+
+        t_verify = 0.0
+        verified = 0
+
+        def _check(diags_fn, stage):
+            nonlocal t_verify, verified
+            t = time.perf_counter()
+            diags = diags_fn()
+            contracts.raise_on_errors(diags, stage, dag.name)
+            t_verify += time.perf_counter() - t
+            verified += 1
+    else:
+        def _check(diags_fn, stage):
+            pass
 
     def _timed(fn, *args, **kw):
         t = time.perf_counter()
         out = fn(*args, **kw)
         return out, time.perf_counter() - t
 
+    _check(lambda: contracts.verify_frontend(dag), "frontend")
     pir, t_part = _timed(partition.run, dag)
+    _check(lambda: contracts.verify_partition(pir), "partition")
     air, t_assign = _timed(assign.run, pir, cfg)
+    _check(lambda: contracts.verify_assign(air, cfg), "cu_assign")
     select_stats = None
     if schedule == "auto":
         from . import strategies
@@ -111,8 +126,12 @@ def compile_dag(dag: ComputeDag, cfg: AccelConfig | None = None, *,
         from . import strategies
 
         sir, t_sched = _timed(strategies.get(schedule), air, cfg)
+    _check(lambda: contracts.verify_schedule(sir, air, cfg), "psum_schedule")
     eir, t_elide = _timed(elide.run, sir)
+    _check(lambda: contracts.verify_emit(eir, sir), "stall_elide")
     prog, t_emit = _timed(emit.run, eir, cfg, planes=planes)
+    _check(lambda: contracts.verify_packed_program(prog, eir, cfg),
+           "pack_emit")
 
     # the ICR reorder runs per cycle inside the schedule pass (its outcome
     # feeds the next cycle's node state); it accumulates its own time and
@@ -133,6 +152,9 @@ def compile_dag(dag: ComputeDag, cfg: AccelConfig | None = None, *,
     ]
     if select_stats is not None:
         prog.stats.pass_stats.append(select_stats)
+    if verify_ir:
+        prog.stats.pass_stats.append(
+            PassStats("verify_ir", t_verify, {"stages_verified": verified}))
     prog.stats.compile_seconds = time.perf_counter() - t0
     return prog
 

@@ -47,8 +47,9 @@ def compile_program(mat: TriCSR, cfg: AccelConfig | None = None, *,
     large-n fallback); ``None`` auto-selects via `program.packed_planes`.
     ``schedule`` picks the schedule pass — a strategy name from
     `compiler.strategies` or ``"auto"`` for per-matrix cost-model
-    selection (DESIGN.md §11).  ``verify_ir=True`` raises
-    ``NotImplementedError`` until the port has ``core/analysis/``.  Equivalent to
+    selection (DESIGN.md §11).  ``verify_ir=True`` runs the per-pass
+    contract verifiers between pipeline stages (`core/analysis/`, raises
+    `errors.IRValidationError` naming the guilty pass).  Equivalent to
     ``compiler.compile_dag(frontends.sptrsv.lower_tri(mat))``.
     """
     return compile_dag(lower_tri(mat), cfg, planes=planes,

@@ -11,8 +11,12 @@ contract a product and a sum into an FMA, so both round every operation
 alike; rtol/atol 1e-5, as tests/test_blocked.py, is the floor), at P = 8
 to 256 lanes, with 1, 2 and 4 columns per CTA and in both word planes,
 the blocked kernel on the row words its twin takes, at block lengths of 3
-to 128 cycles (the wrapper pads a block to whole 8-cycle chunks); and the slice end to end against the serial forward
-substitution; the scan at 2e-4 of the plain result's largest value
+to 128 cycles (the wrapper pads a block to whole 8-cycle chunks); the
+slice end to end against the serial forward substitution; the solve API's
+upper, transpose-pair, circuit and split workloads through both kernels
+(and the resident kernel with x in device memory), bit for bit against
+the same solve on the plain twins and within 1e-5 of the float64 oracles;
+the scan at 2e-4 of the plain result's largest value
 (f32, sums in another order; the kernel's 3xTF32 products keep ~f32
 accuracy); attention at 2e-5 in f32 (the f32 kernel stays on the CUDA
 cores) and 2e-2 of the largest value in bf16 (the kernel rounds P to bf16
@@ -260,6 +264,87 @@ def test_slice_on_card(cuda, placement):
     want = np.stack([serial_solve(mat, bmat[:, i]) for i in range(16)], 1)
     np.testing.assert_allclose(x.cpu().numpy(), want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
+
+
+# the solve API's other workloads on the card: placement knobs, the kernel
+# they run, and whether x sits in shared memory ("device_x": the resident
+# kernel with x in device memory, forced by a 16 KB budget that neither the
+# resident x nor a window fits)
+WORKLOAD_KNOBS = {
+    "resident": (dict(placement="resident"), kernel.sptrsv_cuda, True),
+    "blocked": (dict(placement="blocked", cycles_per_block=64),
+                kernel.sptrsv_cuda_blocked, True),
+    "device_x": (dict(placement="auto", smem_limit_bytes=16 * 1024),
+                 kernel.sptrsv_cuda, False),
+}
+
+
+def _workload_on_card(solve, programs, knobs, want):
+    """``solve(backend="cuda", **opts)`` on the card launches its kernel
+    once per program, bit for bit as on ``device="cpu"`` (the plain twins),
+    and within 1e-5 of the float64 oracle ``want``."""
+    opts, wrapper, x_in_smem = WORKLOAD_KNOBS[knobs]
+    for prog in programs:
+        solver = api.make_solver(prog, batch=want.shape[1], backend="cuda", **opts)
+        assert (solver.placement, solver.x_in_smem) == (
+            "blocked" if knobs == "blocked" else "resident", x_in_smem)
+    before = wrapper.launches
+    got = solve(backend="cuda", **opts)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + len(programs)
+    np.testing.assert_array_equal(got, solve(backend="cuda", device="cpu", **opts))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", sorted(WORKLOAD_KNOBS))
+def test_upper_on_card(cuda, knobs):
+    from repro_torch.core.csr import serial_solve_upper, transpose_upper
+
+    u = transpose_upper(api.matrix("band_dw2048"))
+    cw = api.compile_upper(u)
+    bmat = np.random.default_rng(20).standard_normal((u.n, 16))
+    want = np.stack([serial_solve_upper(u, bmat[:, i]) for i in range(16)], 1)
+    _workload_on_card(lambda **kw: cw.solve(bmat, **kw), [cw.program], knobs, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", sorted(WORKLOAD_KNOBS))
+def test_pair_on_card(cuda, knobs):
+    from repro_torch.core.csr import serial_solve_upper, transpose_upper
+
+    mat = api.matrix("band_dw2048")
+    pair = api.compile_pair(mat)
+    bmat = np.random.default_rng(21).standard_normal((mat.n, 16))
+    u = transpose_upper(mat)
+    want = np.stack([serial_solve_upper(u, serial_solve(mat, bmat[:, i]))
+                     for i in range(16)], 1)
+    _workload_on_card(lambda **kw: api.solve_pair(pair, bmat, **kw),
+                      [pair.forward.program, pair.backward.program], knobs, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", sorted(WORKLOAD_KNOBS))
+def test_circuit_on_card(cuda, knobs):
+    from repro_torch.core.frontends import random_circuit
+
+    circ = random_circuit(4096, max_fan_in=6, seed=4096, locality=256)
+    cw = api.compile_circuit(circ)
+    umat = np.random.default_rng(22).standard_normal((circ.n, 16))
+    _workload_on_card(lambda **kw: cw.solve(umat, **kw), [cw.program], knobs,
+                      circ.eval(umat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", sorted(WORKLOAD_KNOBS))
+def test_split_on_card(cuda, knobs):
+    mat = api.matrix("hub_small")
+    prog, split = api.compile_split(mat, max_indegree=64)
+    assert split.n_aux > 0
+    bmat = np.random.default_rng(23).standard_normal((mat.n, 16))
+    want = np.stack([serial_solve(mat, bmat[:, i]) for i in range(16)], 1)
+    _workload_on_card(lambda **kw: api.solve_split(prog, split, bmat, **kw), [prog],
+                      knobs, want)
 
 
 def _scaled_close(got, want, frac):

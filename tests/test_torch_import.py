@@ -25,6 +25,8 @@ def test_import_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "import repro_torch\n"
         "from repro_torch.core import api, executor\n"
+        "from repro_torch.core import analysis, fine, robust, serialize, transform\n"
+        "from repro_torch.core.frontends import dagcirc, upper\n"
         "from repro_torch.kernels.sptrsv import kernel, ops, ref\n"
         "from repro_torch.kernels.ssd_scan import kernel, ops, ref\n"
         "from repro_torch.kernels.flash_attention import kernel, ops, ref\n"
@@ -60,7 +62,9 @@ def test_no_jax_or_reference_imports(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"kernel.py", "ops.py", "executor.py", "api.py", "chip_smoke.py",
-            "mamba2.py", "model.py", "convert.py", "serve.py"} <= names
+            "mamba2.py", "model.py", "convert.py", "serve.py", "serialize.py",
+            "robust.py", "transform.py", "fine.py", "dagcirc.py", "upper.py",
+            "contracts.py", "hazards.py"} <= names
 
 
 def test_default_device_is_cuda_and_raises_without_it():
