@@ -83,8 +83,42 @@ vocab 32,000, bf16, seeded random weights), through launch/serve.py:
      scaled_dot_product_attention on the same tensors (a yardstick the
      port never calls).
 
+Then the hardened solve path and the solve service through the SpTRSV
+kernels, over steps 2-3's programs (no compile of either matrix again):
+
+  15. api.robust_solver(prog, mat, backend="cuda") on band_huge64k and
+     ckt_huge32k at 16 right-hand sides: band answers on cuda-blocked with
+     no incident, ckt on cuda-resident with only the blocked rung's typed
+     PlacementInfeasibleError; one launch each; x bit-identical to
+     make_solver at that placement and within RTOL of serial_solve; the
+     robust solve's time and its overhead over make_solver (the input
+     check and the scipy residual, on the host);
+  16. faults on ckt_add20 (psum traffic, a window that fits): an exception
+     in the cuda-blocked closure degrades to cuda-resident, to the bits of
+     a direct resident solve; a scaled value plane (verify=False) raises
+     residual incidents on both cuda rungs and returns an answer that passes
+     the residual check; a poisoned b raises NumericalHealthError before any
+     launch; run_fault_injection on the cuda rungs gives no silent wrong
+     answer and run_ir_fault_injection catches every applicable class;
+  17. api.make_service(backend="cuda", max_batch=16) over both tenants on a
+     disk tier written from steps 2-3's programs (ProgramCache(compile_fn=
+     ...)), a seeded stream of 200 requests of 1-4 columns on a virtual
+     clock (full and deadline flushes): every column bit-identical to a
+     direct one-column solve and within RTOL of a float64 solve, one launch
+     per flush, one staging per (tenant, padded width); flushes by reason,
+     p50/p99 of the flush solve time per tenant (each width's first flush,
+     which stages, apart) and columns/s; a second service on the same disk
+     tier rehydrates without compiling (timed against the compiles); a
+     same-pattern tenant with new values is served after a timed
+     recompile_values refresh;
+  18. the same service with a ResilienceConfig, cuda-blocked raising on
+     half its calls: no silent wrong answer (single-rung tickets bit-equal
+     to a direct solve at their rung, every column within RTOL of float64),
+     no deadlock, degraded flushes counted, breaker transitions in
+     report().to_json() under SPT304.
+
 Launch counters are set to 0 right before each main-path run (and each
-path of steps 7-11) and read right after it.  It prints one
+path of steps 7-11 and 15-18) and read right after it.  It prints one
 {"kernels": [...], "paths": [...]} line and, last,
 {"ok": true, "device": {...}}; any failed check raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
@@ -289,6 +323,7 @@ def main() -> int:
     wrappers = {"sptrsv_cuda": kernel.sptrsv_cuda,
                 "sptrsv_cuda_blocked": kernel.sptrsv_cuda_blocked}
     entries = []
+    progs = {}  # steps 2-3's programs, reused by steps 15-18
     for name, placement, kname in (("band_huge64k", "blocked", "sptrsv_cuda_blocked"),
                                    ("ckt_huge32k", "resident", "sptrsv_cuda")):
         # -- main path -------------------------------------------------------
@@ -310,6 +345,8 @@ def main() -> int:
         err_prog = _close(x, execute_numpy(prog, bmat), f"{name} vs execute_numpy")
         serial = np.stack([api.reference_solve(mat, bmat[:, i]) for i in range(B)], 1)
         err_serial = _close(x, serial, f"{name} vs serial_solve")
+        progs[name] = {"mat": mat, "prog": prog, "placement": placement, "kernel": kname,
+                       "bmat": bmat, "f64": serial, "compile_s": t_compile}
         t0 = time.perf_counter()
         for _ in range(5):  # numpy in, tensor out, through the entry point
             solver(bmat)
@@ -376,9 +413,14 @@ def main() -> int:
               flush=True)
 
     paths, launches_by_path = solve_api_phase(wrappers)
-    for e in entries:
-        e["launches_by_path"] = {path: n[e["name"]] for path, n in launches_by_path.items()}
     entries += serve_phase()
+    torch.cuda.empty_cache()
+    more_paths, more_launches = hardened_phase(wrappers, progs)
+    paths += more_paths
+    launches_by_path.update(more_launches)
+    for e in entries:
+        if e["name"] in wrappers:
+            e["launches_by_path"] = {path: n[e["name"]] for path, n in launches_by_path.items()}
     print(json.dumps({"kernels": entries, "paths": paths}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -792,6 +834,404 @@ def serve_phase():
                  path_rel_l2_bf16=path_err, path_rel_l2_floor_bf16=floor,
                  path_rel_l2_f32=path_err32)
     return entries
+
+
+# -- steps 15-18: the hardened solve path and the solve service ---------------
+PLACEMENT_REFUSED = ("cuda-blocked", "build-failed", "PlacementInfeasibleError")
+FAULT_MATRIX = "ckt_add20"   # small, with psum traffic, and a window that fits
+SERVICE_REQUESTS, RESILIENT_REQUESTS = 200, 60
+
+
+def _f64_solve(mat, bmat):
+    """float64 forward substitution of every column (scipy's triangular
+    solve, independent of the compiled program)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as sla
+
+    a = sp.csr_matrix((mat.values, mat.colidx, mat.rowptr), shape=(mat.n, mat.n))
+    return sla.spsolve_triangular(a, np.asarray(bmat, np.float64), lower=True)
+
+
+def _request_stream(rng, tenants, count):
+    """``count`` seeded requests ``(tenant, b[n, 1..4], gap)``: the virtual
+    gap before the next is short (mean 0.05 ms, so a tenant's bucket mostly
+    fills to 16 columns inside ``max_delay`` = 1 ms) 95% of the time and
+    2-5 ms otherwise (so buckets also flush at their deadline)."""
+    import numpy as np
+
+    names = list(tenants)
+    out = []
+    for _ in range(count):
+        name = names[int(rng.integers(len(names)))]
+        b = rng.standard_normal((tenants[name].n, int(rng.integers(1, 5)))).astype(np.float32)
+        gap = (float(rng.exponential(5e-5)) if rng.random() < 0.95
+               else float(rng.uniform(2e-3, 5e-3)))
+        out.append((name, b, gap))
+    return out
+
+
+def _play(svc, clock, stream):
+    """Submit the stream on the service's virtual clock; pump after every
+    gap, drain at the end.  Returns [(ticket, tenant, b)]."""
+    tickets = []
+    for name, b, gap in stream:
+        tickets.append((svc.submit(name, b), name, b))
+        clock.advance(gap)
+        svc.pump()
+    svc.drain()
+    return tickets
+
+
+def _service_ms(flushes):
+    """The flush log's measured solve times (`FlushRecord.service_s`) per
+    tenant: {tenant: ({width: ms of its first flush}, [(ms, columns) of
+    the other flushes])}."""
+    seen, out = set(), {}
+    for f in flushes:
+        first, rest = out.setdefault(f.matrix_id, ({}, []))
+        if (f.matrix_id, f.padded) in seen:
+            rest.append((f.service_s * 1e3, f.columns))
+        else:
+            first[f.padded] = f.service_s * 1e3
+            seen.add((f.matrix_id, f.padded))
+    return out
+
+
+def hardened_phase(wrappers, progs):
+    """The hardened solve path and the solve service through the SpTRSV
+    kernels (steps 15-18), over steps 2-3's programs (``progs``: tenant ->
+    mat, prog, placement, kernel, bmat, f64).  Returns the paths' entries
+    and {path: {kernel: launches}}."""
+    import collections
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import api, executor
+    from repro_torch.core.errors import NumericalHealthError, RobustnessError
+    from repro_torch.core.resilience import BreakerConfig, ResilienceConfig, RetryPolicy
+    from repro_torch.core.robust import (
+        FaultInjector,
+        RobustSolver,
+        relative_residual,
+        run_fault_injection,
+        run_ir_fault_injection,
+    )
+    from repro_torch.core.serve import ManualClock, ProgramCache, pattern_fingerprint
+
+    paths, launches_by_path = [], {}
+    none = {k: 0 for k in wrappers}
+
+    def drive(path, fn):
+        out, launches = _drive(wrappers, path, fn)
+        launches_by_path[path] = launches
+        return out, launches
+
+    # -- 15. robust solves at full size -----------------------------------------
+    for name, p in progs.items():
+        mat, prog, bmat = p["mat"], p["prog"], p["bmat"]
+        stage = "cuda-" + p["placement"]
+        t0 = time.perf_counter()
+        rs = api.robust_solver(prog, mat, backend="cuda")  # verifies the program
+        t_construct = time.perf_counter() - t0
+        path = f"{name} robust_solver"
+        x, launches = drive(path, lambda: rs(bmat))
+        trail = [(i.stage, i.kind, i.error) for i in rs.last_incidents]
+        assert rs.last_stage == stage, (path, rs.last_stage, trail)
+        assert trail == ([] if p["placement"] == "blocked" else [PLACEMENT_REFUSED]), trail
+        assert launches == dict(none, **{p["kernel"]: 1}), (path, launches)
+        direct = api.make_solver(prog, batch=B, backend="cuda", placement=p["placement"])
+        assert np.array_equal(x, direct(bmat).cpu().numpy()), \
+            f"{path}: other bits than the direct {p['placement']} solve"
+        err = _close(x, p["f64"], f"{path} vs serial_solve")
+        p["x"] = x
+        robust_ms = _timed_solve_ms(lambda: rs(bmat))
+        assert rs.last_incidents == [] and rs.last_stage == stage
+        direct_ms = _timed_solve_ms(lambda: direct(bmat).cpu().numpy())
+        t0 = time.perf_counter()
+        rs._check_input(bmat)
+        check_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rs.residual(x, bmat)
+        residual_ms = (time.perf_counter() - t0) * 1e3
+        print(f"{path}: answered on {rs.last_stage}, incidents {trail}, bit-identical to "
+              f"make_solver(placement={p['placement']!r}), max abs err vs float64 {err:.3e}; "
+              f"robust solve {robust_ms:.4f} ms, make_solver {direct_ms:.4f} ms, overhead "
+              f"{robust_ms - direct_ms:.4f} ms (input check {check_ms:.4f} ms, scipy "
+              f"residual {residual_ms:.4f} ms); construction with verify_program "
+              f"{t_construct:.3f} s", flush=True)
+        paths.append({"path": path, "name": p["kernel"], "launches": launches[p["kernel"]],
+                      "stage": stage, "incidents": trail, "bit_identical": True,
+                      "max_abs_err_vs_float64": err, "B": B, "robust_ms": robust_ms,
+                      "make_solver_ms": direct_ms, "robust_overhead_ms": robust_ms - direct_ms,
+                      "check_input_ms": check_ms, "residual_ms": residual_ms,
+                      "construct_verify_s": t_construct})
+
+    # -- 16. faults on the card --------------------------------------------------
+    mat = api.matrix(FAULT_MATRIX)
+    prog = api.compile(mat)
+    bmat = np.random.default_rng(SEED).standard_normal((mat.n, B)).astype(np.float32)
+    want_resident = api.make_solver(prog, batch=B, backend="cuda",
+                                    placement="resident")(bmat).cpu().numpy()
+
+    class Faulty(RobustSolver):
+        def _solver_for(self, stage, batch):
+            fn = super()._solver_for(stage, batch)
+            if stage != "cuda-blocked":
+                return fn
+
+            def boom(b):
+                raise RuntimeError("injected kernel fault")
+            return boom
+
+    rs = Faulty(prog, mat, backend="cuda")
+    path = f"{FAULT_MATRIX} exception in cuda-blocked"
+    x, launches = drive(path, lambda: rs(bmat))
+    trail = [(i.stage, i.kind) for i in rs.last_incidents]
+    assert rs.last_stage == "cuda-resident", (path, rs.last_stage)
+    assert trail == [("cuda-blocked", "exception")] * 2, trail  # one retry
+    assert launches == dict(none, sptrsv_cuda=1), launches
+    assert np.array_equal(x, want_resident), f"{path}: not the resident solve's bits"
+    faults = {"exception": {"stage": rs.last_stage, "incidents": trail, "launches": launches}}
+
+    bad = FaultInjector(SEED).corrupt_stream(prog, k=2, mode="scale")
+    rs = RobustSolver(bad, mat, backend="cuda", verify=False)
+    path = f"{FAULT_MATRIX} corrupt value plane"
+    x, launches = drive(path, lambda: rs(bmat))
+    trail = [(i.stage, i.kind) for i in rs.last_incidents]
+    assert trail[:2] == [("cuda-blocked", "residual"), ("cuda-resident", "residual")], trail
+    assert launches == {"sptrsv_cuda": 1, "sptrsv_cuda_blocked": 1}, launches
+    rel = relative_residual(mat, x, bmat)
+    assert rel <= 1e-3, rel
+    faults["value_plane_scale"] = {"stage": rs.last_stage, "incidents": trail,
+                                   "launches": launches, "residual": rel}
+
+    rs = RobustSolver(prog, mat, backend="cuda")
+    poisoned = FaultInjector(SEED).poison_rhs(bmat, k=2)
+
+    def solve_poisoned():
+        try:
+            rs(poisoned)
+        except NumericalHealthError as e:
+            return str(e)
+        raise AssertionError("a poisoned right-hand side was solved")
+
+    path = f"{FAULT_MATRIX} poisoned b"
+    msg, launches = drive(path, solve_poisoned)
+    assert launches == none, launches
+    faults["poisoned_b"] = {"error": msg, "launches": launches}
+
+    path = f"{FAULT_MATRIX} run_fault_injection"
+    trials, launches = drive(path, lambda: run_fault_injection(
+        mat, prog, trials_per_class=3, seed=SEED, backend="cuda", device="cuda"))
+    assert not any(t["silent_wrong"] for t in trials), trials
+    detected = collections.Counter((t["fault"], t["detected"], t["degraded_to"])
+                                   for t in trials)
+    ir = run_ir_fault_injection(mat, seed=SEED)
+    assert all(r["caught"] for r in ir if r["applicable"]), ir
+    faults["fault_injection"] = {"trials": len(trials), "silent_wrong": 0,
+                                 "launches": launches,
+                                 "outcomes": {"/".join(k): v for k, v in detected.items()}}
+    faults["ir_fault_injection"] = {r["fault"]: r["caught"] if r["applicable"] else None
+                                    for r in ir}
+    print(f"step 16 on {FAULT_MATRIX} (n={mat.n}, {prog.cycles} cycles): "
+          f"{json.dumps(faults)}", flush=True)
+    paths.append({"path": f"{FAULT_MATRIX} faults", "n": mat.n, "B": B, **faults})
+
+    # -- 17. the service ---------------------------------------------------------
+    tenants = {name: p["mat"] for name, p in progs.items()}
+    rng = np.random.default_rng(SEED)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as disk:
+        # the disk tier, written through from steps 2-3's programs (no compile)
+        seed_cache = ProgramCache(disk_dir=disk, compile_fn=lambda m: progs[m.name]["prog"])
+        t0 = time.perf_counter()
+        for m in tenants.values():
+            seed_cache.get(m)
+        t_write = time.perf_counter() - t0
+        clock = ManualClock()
+        svc = api.make_service(tenants, disk_dir=disk, backend="cuda", clock=clock,
+                               timer=time.perf_counter, max_batch=16)
+        rehydrate_s = {}
+        for name, m in tenants.items():
+            t0 = time.perf_counter()
+            svc.cache.get(m)
+            rehydrate_s[name] = time.perf_counter() - t0
+        stream = _request_stream(rng, tenants, SERVICE_REQUESTS)
+        traces = executor.trace_count()
+        path = f"service: {SERVICE_REQUESTS} requests"
+        tickets, stream_launches = drive(path, lambda: _play(svc, clock, stream))
+        stagings = executor.trace_count() - traces
+        st = svc.stats
+        assert all(t.done and not t.failed for t, _, _ in tickets)
+        assert svc.pending_columns() == 0 and len(svc.incidents) == 0, svc.incidents.to_list()
+        assert all(e.compiles == 0 and e.disk_hits == 1 for e in svc.cache.entries.values())
+        assert st.flushes_full > 0 and st.flushes_deadline > 0, st.to_dict()
+        per_tenant = collections.Counter(f.matrix_id for f in st.flushes)
+        want = dict(none)
+        for name, p in progs.items():
+            want[p["kernel"]] += per_tenant[name]
+        assert stream_launches == want, (stream_launches, want)
+        widths = {(f.matrix_id, f.padded) for f in st.flushes}
+        assert stagings == len(widths), (stagings, sorted(widths))
+        assert all(sum(t == name for t, _ in widths) <= 3 for name in tenants), widths
+        errs = {}
+        for name, p in progs.items():
+            single = api.make_solver(svc.cache.get(tenants[name]), backend="cuda")
+            assert single.placement == p["placement"], (name, single.placement)
+            cols = [(t.result(), b) for t, nm, b in tickets if nm == name]
+            for x, b in cols:
+                for j in range(b.shape[1]):
+                    assert np.array_equal(x[:, j], single(b[:, j]).cpu().numpy()), \
+                        f"service column of {name} differs from its direct solve"
+            xs = np.concatenate([x for x, _ in cols], axis=1)
+            errs[name] = _close(xs, _f64_solve(tenants[name], np.concatenate(
+                [b for _, b in cols], axis=1)), f"service columns of {name} vs float64")
+        ms = _service_ms(st.flushes)
+        solve_s = sum(f.service_s for f in st.flushes)
+        columns = st.completed_columns
+        steady = [(t, c) for _, rest in ms.values() for t, c in rest]
+        steady = (sum(c for _, c in steady), sum(t for t, _ in steady) / 1e3)
+        report = {name: {"flushes": per_tenant[name],
+                         "columns": sum(f.columns for f in st.flushes if f.matrix_id == name),
+                         "first_flush_ms_by_width": first,
+                         "p50_ms": float(np.percentile([t for t, _ in rest], 50)),
+                         "p99_ms": float(np.percentile([t for t, _ in rest], 99)),
+                         "max_abs_err_vs_float64": errs[name]}
+                  for name, (first, rest) in ms.items()}
+        reasons = {"full": st.flushes_full, "deadline": st.flushes_deadline,
+                   "drain": st.flushes_drain}
+        print(f"{path}: {columns} columns in {st.flush_count()} flushes {reasons}, "
+              f"launches {stream_launches}, {stagings} stagings over (tenant, padded width) "
+              f"{sorted(widths)}; per tenant {json.dumps(report)}; "
+              f"{columns / solve_s:.1f} columns/s over {solve_s * 1e3:.2f} ms "
+              f"of solve time, {steady[0] / steady[1]:.1f} without each width's first "
+              f"flush; every column bit-identical to its direct solve", flush=True)
+
+        # a second service on the same disk tier rehydrates without compiling
+        clock2 = ManualClock()
+        svc2 = api.make_service(tenants, disk_dir=disk, backend="cuda", clock=clock2,
+                                timer=time.perf_counter, max_batch=16)
+        rehydrate2_s = {}
+        for name, m in tenants.items():
+            t0 = time.perf_counter()
+            svc2.cache.get(m)
+            rehydrate2_s[name] = time.perf_counter() - t0
+        assert all(e.compiles == 0 and e.disk_hits == 1 for e in svc2.cache.entries.values())
+        for name, p in progs.items():
+            t = svc2.submit(name, p["bmat"])
+            assert t.done and np.array_equal(t.result(), p["x"]), \
+                f"the rehydrated {name} solved to other bits"
+        compile_s = {name: p["compile_s"] for name, p in progs.items()}
+        print(f"second service on the same disk tier: rehydrated in {rehydrate2_s} s "
+              f"(first service {rehydrate_s} s) against compiles of {compile_s} s, "
+              f"no compile; x bit-identical to step 15's; disk tier written in "
+              f"{t_write:.3f} s", flush=True)
+
+        # a same-pattern, new-values tenant: a values-only refresh, no compile
+        name = next(n for n, p in progs.items() if p["placement"] == "resident")
+        m2 = dataclasses.replace(tenants[name], values=tenants[name].values * 1.5)
+        svc.register(f"{name} x1.5", m2)
+        t0 = time.perf_counter()
+        svc.cache.get(m2)
+        refresh_s = time.perf_counter() - t0
+        ent = svc.cache.entries[pattern_fingerprint(m2)]
+        assert (ent.value_refreshes, ent.compiles) == (1, 0), ent
+        path = f"service: {name} x1.5 after recompile_values"
+        t, launches = drive(path, lambda: svc.submit(f"{name} x1.5", progs[name]["bmat"]))
+        assert t.done and launches == dict(none, **{progs[name]["kernel"]: 1}), launches
+        err = _close(t.result(), _f64_solve(m2, progs[name]["bmat"]),
+                     f"{name} x1.5 vs float64")
+        print(f"{path}: recompile_values refresh {refresh_s:.3f} s (compile "
+              f"{compile_s[name]:.2f} s), max abs err vs float64 {err:.3e}", flush=True)
+        paths.append({
+            "path": "service", "requests": SERVICE_REQUESTS, "columns": columns,
+            "flushes": reasons, "launches": stream_launches,
+            "stagings": stagings, "widths": sorted(widths), "tenants": report,
+            "columns_per_s": columns / solve_s, "solve_s": solve_s,
+            "columns_per_s_after_staging": steady[0] / steady[1],
+            "rehydrate_s": rehydrate_s, "rehydrate2_s": rehydrate2_s, "compile_s": compile_s,
+            "disk_write_s": t_write, "refresh_s": refresh_s, "refresh_err": err,
+            "bit_identical": True})
+
+        # -- 18. the resilient service: cuda-blocked raises on half its calls --
+        res = ResilienceConfig(
+            retry=RetryPolicy(max_retries=1, base_delay_s=1e-3, seed=SEED),
+            breaker=BreakerConfig(window_s=1.0, min_samples=4, failure_threshold=0.5,
+                                  cooldown_s=0.01))
+        clock3 = ManualClock()
+        svc3 = api.make_service(tenants, disk_dir=disk, backend="cuda", clock=clock3,
+                                timer=time.perf_counter, max_batch=16, resilience=res)
+        frng = np.random.default_rng(SEED + 18)
+        orig = svc3._stage_solver
+
+        def chaotic(stage, prog, k, mat):
+            fn = orig(stage, prog, k, mat)
+            if stage != "cuda-blocked":
+                return fn
+
+            def wrapped(bm):
+                if frng.random() < 0.5:
+                    raise RuntimeError("injected cuda-blocked fault")
+                return fn(bm)
+            return wrapped
+
+        svc3._stage_solver = chaotic
+        stream = _request_stream(rng, tenants, RESILIENT_REQUESTS)
+        traces = executor.trace_count()
+        path = f"resilient service: {RESILIENT_REQUESTS} requests"
+        tickets, launches = drive(path, lambda: _play(svc3, clock3, stream))
+        stagings3 = executor.trace_count() - traces
+        st3 = svc3.stats
+        assert svc3.pending_columns() == 0 and all(t.done for t, _, _ in tickets), "deadlock"
+        by_index = {f.index: f for f in st3.flushes if f.index >= 0}
+        rungs = collections.Counter(f.stage for f in by_index.values())
+        assert set(rungs) <= {"cuda-blocked", "cuda-resident"}, rungs
+        assert launches == {"sptrsv_cuda_blocked": rungs["cuda-blocked"],
+                            "sptrsv_cuda": rungs["cuda-resident"]}, (launches, rungs)
+        silent_wrong = failed = mixed = 0
+        answered = collections.defaultdict(list)
+        for t, name, b in tickets:
+            if t.failed:
+                failed += 1
+                silent_wrong += not isinstance(t.error, RobustnessError)
+                continue
+            stages = {by_index[i].stage for i in t.flush_indices}
+            x = t.result()
+            if len(stages) == 1:
+                (stage,) = stages
+                direct = api.make_solver(svc3.cache.get(tenants[name]), batch=b.shape[1],
+                                         backend="cuda", placement=stage[len("cuda-"):])
+                silent_wrong += not np.array_equal(x, direct(b).cpu().numpy())
+            else:
+                mixed += 1
+                silent_wrong += not relative_residual(tenants[name], x, b) <= 1e-3
+            answered[name].append((x, b))
+        for name, cols in answered.items():
+            _close(np.concatenate([x for x, _ in cols], axis=1),
+                   _f64_solve(tenants[name], np.concatenate([b for _, b in cols], axis=1)),
+                   f"resilient service columns of {name} vs float64")
+        assert silent_wrong == 0, silent_wrong
+        assert st3.degraded_flushes > 0, st3.to_dict()
+        diag = json.loads(svc3.report().to_json())
+        codes = collections.Counter(d["code"] for d in diag["diagnostics"])
+        kinds = svc3.incidents.by_kind()
+        assert codes["SPT304"] > 0 and all(c.startswith("SPT30") for c in codes), codes
+        print(f"{path}: {st3.columns} columns, {st3.flush_count()} flushes by rung "
+              f"{dict(rungs)}, {st3.degraded_flushes} degraded, {st3.retries} retries, "
+              f"{failed} failed typed, {mixed} tickets across rungs, 0 silent wrong, "
+              f"no deadlock; launches {launches}; {stagings3} stagings (rehydrated "
+              f"programs are new objects); report codes {dict(codes)}, incident kinds "
+              f"{kinds}, breakers {diag['meta']['breakers']}", flush=True)
+        paths.append({"path": "resilient service", "requests": RESILIENT_REQUESTS,
+                      "columns": st3.columns, "flushes_by_rung": dict(rungs),
+                      "degraded_flushes": st3.degraded_flushes, "retries": st3.retries,
+                      "failed_typed": failed, "mixed_tickets": mixed, "silent_wrong": 0,
+                      "deadlocked": False, "launches": launches, "stagings": stagings3,
+                      "report_codes": dict(codes), "incident_kinds": kinds,
+                      "breakers": diag["meta"]["breakers"]})
+    return paths, launches_by_path
 
 
 if __name__ == "__main__":

@@ -37,6 +37,17 @@ returns an `analysis.AnalysisReport` of hazards and SPT2xx lints:
     prog = api.load_program("ckt.prog")          # CRC + structural verify
     report = api.analyze_program(prog)           # report.ok(), .render()
 
+The hardened solve path and the solve service (DESIGN.md §7, §9, §10):
+`robust_solver` checks every solve's inputs and outputs and degrades
+through the ladder cuda-blocked → cuda-resident → torch → numpy →
+reference with an `Incident` per step down; `make_service` micro-batches a
+stream of ``(matrix_id, b)`` requests over a cache of compiled programs:
+
+    rs = api.robust_solver(prog, mat, backend="cuda")
+    x = rs(b)                                    # rs.last_stage, .last_incidents
+    svc = api.make_service({"ckt": mat}, backend="cuda")
+    ticket = svc.submit("ckt", b); svc.drain(); x = ticket.result()
+
 Every entry point runs on the CUDA device unless the caller passes
 ``device="cpu"`` (a machine without CUDA raises instead of falling back).
 Two backends: ``"torch"`` (the eager per-cycle executor, any device) and
@@ -103,6 +114,8 @@ __all__ = [
     "load_program",
     "verify_program",
     "analyze_program",
+    "robust_solver",
+    "make_service",
     "AccelConfig",
     "Program",
     "CompiledWorkload",
@@ -347,8 +360,13 @@ def load_program(path, *, verify: bool = True) -> Program:
 
 
 def verify_program(prog: Program) -> None:
-    """Structurally validate a compiled program (`core.robust`); raises
-    `ProgramCorruptionError` on the first violated invariant."""
+    """Structurally validate a compiled program; raises
+    `ProgramCorruptionError` on the first violated invariant.
+
+    `core.robust` holds it beside the checks that use it: `robust_solver`
+    verifies its program at construction, and `load_program` (also the
+    service's disk tier) before returning one.
+    """
     from .robust import verify_program as _verify
 
     _verify(prog)
@@ -366,6 +384,82 @@ def analyze_program(prog: Program, *, lint: bool = True):
     from .analysis import analyze_program as _analyze
 
     return _analyze(prog, lint=lint)
+
+
+def robust_solver(prog: Program, mat: TriCSR | None = None, **opts):
+    """Health-checked solve closure with graceful degradation.
+
+    Returns a `core.robust.RobustSolver` — callable like the `make_solver`
+    closures (``solver(b)`` with ``b`` of shape ``[n]`` or ``[n, B]``, but
+    numpy out) with input validation, output health checks (non-finite x,
+    relative residual against ``mat`` when retained), and the
+    deterministic fallback ladder cuda-blocked → cuda-resident → torch →
+    numpy → reference with machine-readable incident records (DESIGN.md
+    §7).  ``backend`` ("cuda", "torch" — the default — or "numpy") is the
+    entry rung and ``device`` (CUDA when None) the device of the cuda and
+    torch rungs, resolved at construction.
+    """
+    from .robust import RobustSolver
+
+    return RobustSolver(prog, mat, **opts)
+
+
+def make_service(matrices=None, *, capacity: int = 32, disk_dir=None,
+                 max_batch: int = 16, max_delay: float = 1e-3,
+                 clock=None, timer=None, cfg: AccelConfig | None = None,
+                 schedule: str = "paper", backend: str = "torch", mesh=None,
+                 resilience=None, device=None, **backend_opts):
+    """Build a production solve service (`core.serve`, DESIGN.md §9).
+
+    Returns a `serve.SolveService` over a fresh `serve.ProgramCache`
+    (bounded LRU of ``capacity`` programs keyed by the structure-only
+    `serve.pattern_fingerprint`; ``disk_dir=`` adds the CRC-verified disk
+    tier that rehydrates evicted entries through `save_program` /
+    `load_program` instead of recompiling, file for file the JAX
+    package's).  ``matrices`` is an optional ``{matrix_id: TriCSR}`` dict
+    to register up front; more tenants can join later via
+    ``service.register``.
+
+    Requests stream in through ``service.submit(matrix_id, b)`` (``b`` of
+    shape ``[n]`` or ``[n, k]``) and micro-batch per matrix into the
+    padded widths the executor cache keys on; a bucket flushes at
+    ``max_batch`` columns or when its oldest column ages past
+    ``max_delay`` seconds (checked by ``service.pump()`` / at the next
+    submit; ``service.drain()`` flushes everything).  The scheduling core
+    runs entirely on the injectable ``clock`` — here, and only here, a
+    missing clock defaults to the wall (``time.monotonic``); construct
+    `serve.SolveService` directly (or pass a `serve.ManualClock`) for
+    deterministic tests.
+
+    ``backend`` ("numpy", "torch" or "cuda") and ``backend_opts`` choose
+    the execution path per `make_solver`, shared by every flush;
+    ``device`` (CUDA when None) is resolved at construction.  ``mesh=``
+    raises `NotImplementedError` (no multi-GPU path yet).
+
+    ``resilience`` (a `resilience.ResilienceConfig`, DESIGN.md §10) arms
+    the resilient flush path: per-request deadlines
+    (``submit(..., deadline=|timeout=)``), retry with deterministic
+    backoff through the backend ladder, per-(matrix, rung) circuit
+    breakers, admission-control load shedding, and the unified SPT3xx
+    incident report (``service.report()``).  A production resilience
+    config usually passes ``sleep=time.sleep`` so backoff really waits;
+    the default config never sleeps (virtual-clock friendly).
+    """
+    from . import serve
+
+    if clock is None:
+        import time
+
+        clock = time.monotonic
+    cache = serve.ProgramCache(capacity=capacity, disk_dir=disk_dir, cfg=cfg,
+                               schedule=schedule)
+    svc = serve.SolveService(cache, max_batch=max_batch,
+                             max_delay=max_delay, clock=clock, timer=timer,
+                             backend=backend, mesh=mesh, resilience=resilience,
+                             device=device, **backend_opts)
+    for mid, m in (matrices or {}).items():
+        svc.register(mid, m)
+    return svc
 
 
 def solve_numpy(prog: Program, b: np.ndarray) -> np.ndarray:

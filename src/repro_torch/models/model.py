@@ -54,7 +54,7 @@ def _require_hybrid(cfg) -> None:
     if cfg.family != "hybrid":
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            f"runs the 'hybrid' family (ROADMAP Queue 1, item 6)")
+            f"runs the 'hybrid' family (ROADMAP Queue 1, item 4)")
 
 
 def _groups(cfg) -> tuple[int, int]:

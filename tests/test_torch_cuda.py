@@ -16,9 +16,11 @@ slice end to end against the serial forward substitution; the solve API's
 upper, transpose-pair, circuit and split workloads through both kernels
 (and the resident kernel with x in device memory), bit for bit against
 the same solve on the plain twins and within 1e-5 of the float64 oracles;
-the scan at 2e-4 of the plain result's largest value
-(f32, sums in another order; the kernel's 3xTF32 products keep ~f32
-accuracy); attention at 2e-5 in f32 (the f32 kernel stays on the CUDA
+the hardened solve path (a clean robust solve on the expected cuda rung,
+an injected fault degrading to the resident rung) and a short service
+stream, bit for bit the direct solves; the scan at 2e-4 of the plain
+result's largest value (f32, sums in another order; the kernel's 3xTF32
+products keep ~f32 accuracy); attention at 2e-5 in f32 (the f32 kernel stays on the CUDA
 cores) and 2e-2 of the largest value in bf16 (the kernel rounds P to bf16
 for the PV product, as scaled_dot_product_attention does); the reduced
 Zamba2 prefill on the kernels against the plain path at 1e-4.
@@ -345,6 +347,107 @@ def test_split_on_card(cuda, knobs):
     want = np.stack([serial_solve(mat, bmat[:, i]) for i in range(16)], 1)
     _workload_on_card(lambda **kw: api.solve_split(prog, split, bmat, **kw), [prog],
                       knobs, want)
+
+
+# the hardened solve path and the service on the card: the matrix, the rung
+# a clean solve answers on, its kernel, and the incidents it may carry (the
+# blocked rung's typed refusal of a program with no window)
+ROBUST_CASES = {
+    "ckt_add20": ("cuda-blocked", kernel.sptrsv_cuda_blocked, []),
+    "ckt_rajat04": ("cuda-resident", kernel.sptrsv_cuda,
+                    [("cuda-blocked", "build-failed", "PlacementInfeasibleError")]),
+}
+
+
+def _direct(prog, stage, bmat):
+    """The same columns solved directly at ``stage``'s placement."""
+    solver = api.make_solver(prog, batch=bmat.shape[1], backend="cuda",
+                             placement=stage[len("cuda-"):])
+    return solver(bmat).cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ROBUST_CASES))
+def test_robust_solve_on_card(cuda, name):
+    """A clean robust solve answers on the expected cuda rung with one launch
+    of its kernel, bit for bit the direct solve's, within 1e-5 of serial."""
+    stage, wrapper, allowed = ROBUST_CASES[name]
+    mat = api.matrix(name)
+    prog = api.compile(mat)
+    bmat = np.random.default_rng(30).standard_normal((mat.n, 16))
+    rs = api.robust_solver(prog, mat, backend="cuda")
+    assert rs.device.type == "cuda"
+    before = wrapper.launches
+    x = rs(bmat)
+    assert wrapper.launches == before + 1
+    assert rs.last_stage == stage
+    assert [(i.stage, i.kind, i.error) for i in rs.last_incidents] == allowed
+    np.testing.assert_array_equal(x, _direct(prog, stage, bmat))
+    want = np.stack([serial_solve(mat, bmat[:, i]) for i in range(16)], 1)
+    np.testing.assert_allclose(x, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_robust_solve_on_card_degrades_past_an_injected_fault(cuda):
+    """An exception in the cuda-blocked closure degrades to cuda-resident,
+    with an "exception" incident per attempt, to the resident solve's bits."""
+    from repro_torch.core.robust import RobustSolver
+
+    class Faulty(RobustSolver):
+        def _solver_for(self, stage, batch):
+            fn = super()._solver_for(stage, batch)
+            if stage != "cuda-blocked":
+                return fn
+
+            def boom(b):
+                raise RuntimeError("injected kernel fault")
+            return boom
+
+    mat = api.matrix("ckt_add20")
+    prog = api.compile(mat)
+    bmat = np.random.default_rng(31).standard_normal((mat.n, 4))
+    rs = Faulty(prog, mat, backend="cuda", max_retries=1)
+    before = kernel.sptrsv_cuda.launches
+    x = rs(bmat)
+    assert kernel.sptrsv_cuda.launches == before + 1
+    assert rs.last_stage == "cuda-resident"
+    assert [(i.stage, i.kind, i.attempt) for i in rs.last_incidents] == \
+        [("cuda-blocked", "exception", 1), ("cuda-blocked", "exception", 2)]
+    np.testing.assert_array_equal(x, _direct(prog, "cuda-resident", bmat))
+
+
+@pytest.mark.cuda
+def test_service_stream_on_card(cuda):
+    """A short request stream through a cuda service: every completed column
+    bit-identical to a direct one-column solve on the card, one kernel launch
+    per flush, no incident."""
+    from repro_torch.core.serve import ManualClock
+
+    mats = {name: api.matrix(name) for name in ROBUST_CASES}
+    clock = ManualClock()
+    svc = api.make_service(mats, backend="cuda", clock=clock, max_batch=8,
+                           max_delay=1e-3)
+    rng = np.random.default_rng(32)
+    wrappers = (kernel.sptrsv_cuda, kernel.sptrsv_cuda_blocked)
+    before = sum(w.launches for w in wrappers)
+    tickets = []
+    for i in range(24):
+        name = sorted(mats)[int(rng.integers(2))]
+        b = rng.standard_normal((mats[name].n, int(rng.integers(1, 4))))
+        tickets.append((svc.submit(name, b), name, b))
+        clock.advance(float(rng.choice([1e-4, 2e-3])))
+        svc.pump()
+    svc.drain()
+    torch.cuda.synchronize()
+    assert len(svc.incidents) == 0
+    assert {f.matrix_id for f in svc.stats.flushes} == set(mats)
+    assert sum(w.launches for w in wrappers) - before == svc.stats.flush_count()
+    for ticket, name, b in tickets:
+        prog = svc.cache.get(mats[name])
+        single = api.make_solver(prog, backend="cuda")
+        got = ticket.result()
+        for j in range(b.shape[1]):
+            np.testing.assert_array_equal(got[:, j], single(b[:, j]).cpu().numpy())
 
 
 def _scaled_close(got, want, frac):

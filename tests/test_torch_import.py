@@ -15,7 +15,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -26,6 +27,7 @@ def test_import_with_jax_blocked():
         "import repro_torch\n"
         "from repro_torch.core import api, executor\n"
         "from repro_torch.core import analysis, fine, robust, serialize, transform\n"
+        "from repro_torch.core import resilience, serve\n"
         "from repro_torch.core.frontends import dagcirc, upper\n"
         "from repro_torch.kernels.sptrsv import kernel, ops, ref\n"
         "from repro_torch.kernels.ssd_scan import kernel, ops, ref\n"
@@ -64,7 +66,8 @@ def test_port_files_found():
     assert {"kernel.py", "ops.py", "executor.py", "api.py", "chip_smoke.py",
             "mamba2.py", "model.py", "convert.py", "serve.py", "serialize.py",
             "robust.py", "transform.py", "fine.py", "dagcirc.py", "upper.py",
-            "contracts.py", "hazards.py"} <= names
+            "contracts.py", "hazards.py", "resilience.py",
+            "torch_quickstart.py"} <= names
 
 
 def test_default_device_is_cuda_and_raises_without_it():
@@ -112,3 +115,23 @@ def test_reused_library_keeps_its_compiler_output(tmp_path, monkeypatch):
     monkeypatch.setattr(common, "_nvcc", lambda: pytest.fail("rebuilt"))
     assert common.build_library("k", src) == path
     assert "Used 40 registers" in common.BUILD_LOGS["k"]
+
+
+def test_quickstart_runs_on_the_cpu():
+    """`examples/torch_quickstart.py` needs only the port: with jax blocked
+    and ``--device cpu`` it walks compile → make_solver → robust_solver →
+    make_service on the kernels' plain versions."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.argv = ['torch_quickstart.py', '--device', 'cpu']\n"
+        "runpy.run_path('examples/torch_quickstart.py', run_name='__main__')\n"
+        "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "robust_solver: answered on cuda-blocked, incidents []" in out.stdout
+    assert "make_service: 1 flush of 8 columns (full)" in out.stdout
