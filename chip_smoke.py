@@ -117,8 +117,36 @@ kernels, over steps 2-3's programs (no compile of either matrix again):
      no deadlock, degraded flushes counted, breaker transitions in
      report().to_json() under SPT304.
 
+Then the columns split over devices (core/shard.py), over steps 2-3's
+programs:
+
+  19. band_huge64k and ckt_huge32k through make_solver(batch=16, mesh=...,
+     backend="cuda") on a mesh of one device and on one of two blocks
+     (every card where there are more, the one card twice where there is
+     one): placement as in steps 2-3, one launch per block, every column
+     bit-identical to the unsharded solve and within RTOL of execute_numpy;
+     then a make_service(mesh=...) stream of 50 requests, every column
+     bit-identical to its direct solve, two launches a flush.
+
+Then the other five model families served at full width and depth through
+launch/serve.py (seeded random bf16 weights, 8 requests, 32 decode steps,
+seeded normal vision / frames inputs in place of the server's zero stubs):
+
+  20-24. smollm-360m, granite-moe-1b-a400m, rwkv6-1.6b, whisper-base (448
+     prompt tokens, its decoder's context, over 1,500 frames) and
+     llama-3.2-vision-11b (1,000 prompt tokens, 1,601 vision tokens): the
+     bf16 prefill on the kernels against the plain path within twice the
+     rounding floor (the plain path with attention summed by the kernel's
+     twin and the scan by the sequential recurrence), the same in f32 at
+     full depth within PATH_REL_L2_F32, the launch counts of serve.run's
+     prefill and decode (FAMILIES), finite logits and tokens inside the
+     vocabulary, tokens/s over SERVE_RUNS runs, and the first launch of
+     every distinct attention shape (or the scan) of a prefill and a decode
+     step held against its twin, timed beside scaled_dot_product_attention
+     and the card's bound.
+
 Launch counters are set to 0 right before each main-path run (and each
-path of steps 7-11 and 15-18) and read right after it.  It prints one
+path of steps 7-11 and 15-24) and read right after it.  It prints one
 {"kernels": [...], "paths": [...]} line and, last,
 {"ok": true, "device": {...}}; any failed check raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
@@ -342,11 +370,13 @@ def main() -> int:
         assert launches[kname] > 0, (name, launches)
         x = x.cpu().numpy()
         assert x.shape == (mat.n, B) and np.isfinite(x).all(), name
-        err_prog = _close(x, execute_numpy(prog, bmat), f"{name} vs execute_numpy")
+        oracle = execute_numpy(prog, bmat)
+        err_prog = _close(x, oracle, f"{name} vs execute_numpy")
         serial = np.stack([api.reference_solve(mat, bmat[:, i]) for i in range(B)], 1)
         err_serial = _close(x, serial, f"{name} vs serial_solve")
         progs[name] = {"mat": mat, "prog": prog, "placement": placement, "kernel": kname,
-                       "bmat": bmat, "f64": serial, "compile_s": t_compile}
+                       "bmat": bmat, "f64": serial, "oracle": oracle,
+                       "compile_s": t_compile}
         t0 = time.perf_counter()
         for _ in range(5):  # numpy in, tensor out, through the entry point
             solver(bmat)
@@ -418,9 +448,18 @@ def main() -> int:
     more_paths, more_launches = hardened_phase(wrappers, progs)
     paths += more_paths
     launches_by_path.update(more_launches)
+    more_paths, more_launches = shard_phase(wrappers, progs)
+    paths += more_paths
+    launches_by_path.update(more_launches)
+    del progs
+    torch.cuda.empty_cache()
+    more_paths, model_launches = families_phase()
+    paths += more_paths
     for e in entries:
         if e["name"] in wrappers:
             e["launches_by_path"] = {path: n[e["name"]] for path, n in launches_by_path.items()}
+        else:
+            e["launches_by_path"] = {path: n[e["name"]] for path, n in model_launches.items()}
     print(json.dumps({"kernels": entries, "paths": paths}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1231,6 +1270,357 @@ def hardened_phase(wrappers, progs):
                       "deadlocked": False, "launches": launches, "stagings": stagings3,
                       "report_codes": dict(codes), "incident_kinds": kinds,
                       "breakers": diag["meta"]["breakers"]})
+    return paths, launches_by_path
+
+
+# -- step 19: the columns of a solve split over devices -------------------------
+SHARD_REQUESTS = 50
+
+
+def _meshes():
+    """A mesh of one device, and one of two blocks: every card where there
+    are more, the one card twice where there is one."""
+    import torch
+
+    from repro_torch.core import shard
+
+    one = shard.batch_mesh(1)
+    two = (shard.batch_mesh() if torch.cuda.device_count() > 1
+           else shard.batch_mesh(devices=one.devices * 2))
+    return {"1 device": one, f"{two.size} blocks": two}
+
+
+def shard_phase(wrappers, progs):
+    """Steps 2-3's solves split over devices (step 19), through
+    make_solver(mesh=...) and a make_service(mesh=...) stream.  Returns the
+    paths' entries and {path: {kernel: launches}}."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import api
+    from repro_torch.core.serve import ManualClock, ProgramCache
+
+    paths, launches_by_path = [], {}
+    none = {k: 0 for k in wrappers}
+    meshes = _meshes()
+    for name, p in progs.items():
+        prog, bmat = p["prog"], p["bmat"]
+        unsharded = api.make_solver(prog, batch=B, backend="cuda")
+        direct = unsharded(bmat).cpu().numpy()
+        direct_ms = _timed_solve_ms(lambda: unsharded(bmat).cpu().numpy())
+        for label, mesh in meshes.items():
+            solver = api.make_solver(prog, batch=B, mesh=mesh, backend="cuda")
+            assert solver.placement == p["placement"], (name, label, solver.placement)
+            path = f"{name} sharded over {label} ({mesh.size} column blocks)"
+            x, launches = _drive(wrappers, path, lambda: solver(bmat))
+            launches_by_path[path] = launches
+            assert launches == dict(none, **{p["kernel"]: mesh.size}), (path, launches)
+            x = x.cpu().numpy()
+            assert np.array_equal(x, direct), f"{path}: other bits than the unsharded solve"
+            err = _close(x, p["oracle"], f"{path} vs execute_numpy")
+            solve_ms = _timed_solve_ms(lambda: solver(bmat).cpu().numpy())
+            print(f"{path}: placement {solver.placement}, launches {launches}, "
+                  f"bit-identical to the unsharded solve, max abs err vs float64 "
+                  f"program {err:.3e}; through the entry point, numpy in and out, "
+                  f"{solve_ms:.4f} ms (unsharded {direct_ms:.4f} ms)", flush=True)
+            paths.append({"path": path, "name": p["kernel"], "launches": launches[p["kernel"]],
+                          "devices": [str(d) for d in mesh.devices], "B": B,
+                          "placement": solver.placement, "bit_identical": True,
+                          "max_abs_err_vs_float64": err, "solve_ms": solve_ms,
+                          "unsharded_solve_ms": direct_ms})
+
+    # a service stream with every flush split over the two-block mesh
+    label, mesh = list(meshes.items())[-1]
+    tenants = {name: p["mat"] for name, p in progs.items()}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as disk:
+        seed_cache = ProgramCache(disk_dir=disk, compile_fn=lambda m: progs[m.name]["prog"])
+        for m in tenants.values():
+            seed_cache.get(m)
+        clock = ManualClock()
+        svc = api.make_service(tenants, disk_dir=disk, backend="cuda", mesh=mesh,
+                               clock=clock, timer=time.perf_counter, max_batch=16)
+        stream = _request_stream(np.random.default_rng(SEED + 19), tenants, SHARD_REQUESTS)
+        path = f"service over {label}: {SHARD_REQUESTS} requests"
+        tickets, launches = _drive(wrappers, path, lambda: _play(svc, clock, stream))
+        launches_by_path[path] = launches
+        st = svc.stats
+        assert all(t.done and not t.failed for t, _, _ in tickets)
+        assert len(svc.incidents) == 0, svc.incidents.to_list()
+        want = dict(none)
+        for f in st.flushes:
+            want[progs[f.matrix_id]["kernel"]] += mesh.size
+        assert launches == want, (launches, want)
+        for name, p in progs.items():
+            single = api.make_solver(svc.cache.get(tenants[name]), backend="cuda")
+            for t, nm, b in tickets:
+                if nm != name:
+                    continue
+                x = t.result()
+                for j in range(b.shape[1]):
+                    assert np.array_equal(x[:, j], single(b[:, j]).cpu().numpy()), \
+                        f"sharded service column of {name} differs from its direct solve"
+        solve_s = sum(f.service_s for f in st.flushes)
+        print(f"{path}: {st.completed_columns} columns in {st.flush_count()} flushes, "
+              f"launches {launches} ({mesh.size} a flush), every column bit-identical "
+              f"to its direct solve; {st.completed_columns / solve_s:.1f} columns/s over "
+              f"{solve_s * 1e3:.2f} ms of solve time (stagings included)", flush=True)
+        paths.append({"path": path, "requests": SHARD_REQUESTS,
+                      "columns": st.completed_columns, "flushes": st.flush_count(),
+                      "launches": launches, "bit_identical": True,
+                      "columns_per_s": st.completed_columns / solve_s, "solve_s": solve_s})
+    return paths, launches_by_path
+
+
+# -- steps 20-24: the other five families served at full width -----------------
+FAMILIES = (  # arch, prompt tokens, (scan, attention) launches per prefill and decode step
+    ("smollm-360m", 1000, (0, 32), (0, 0)),
+    ("granite-moe-1b-a400m", 1000, (0, 24), (0, 0)),
+    ("rwkv6-1.6b", 1000, (24, 0), (0, 0)),
+    ("whisper-base", 448, (0, 18), (0, 6)),       # 448: the decoder's context
+    ("llama-3.2-vision-11b", 1000, (0, 40), (0, 0)),
+)
+FAMILY_REQUESTS, FAMILY_DECODE = 8, 32
+
+
+def _seeded_extra(cfg, requests):
+    """Seeded normal frontend inputs (the server's stub feeds zeros, which
+    would hide a fault in cross-attention)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    if cfg.family == "vlm":
+        return {"vision": torch.randn((requests, cfg.vision_tokens, cfg.vision_dim),
+                                      generator=g, device="cuda")}
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((requests, cfg.enc_frames, cfg.d_model),
+                                      generator=g, device="cuda")}
+    return {}
+
+
+def _kernel_check(name, args, kw, heads):
+    """One tapped launch's real inputs: the kernel against its plain twin,
+    its time (CUDA events), the twin's (one run), the card's bound and,
+    for attention, scaled_dot_product_attention on the same tensors."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
+    from repro_torch.kernels.ssd_scan import kernel as scan_kernel
+
+    if name == "chunked_scan_cuda":
+        launch = lambda: scan_kernel.chunked_scan_cuda(*args, **kw)
+        plain = lambda: scan_kernel.chunked_scan_plain(*args, **kw)
+    else:
+        launch = lambda: attn_kernel.flash_attention_cuda(*args, **kw)
+        plain = lambda: attn_kernel.flash_attention_plain(*args, **kw)
+    got = launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if name == "flash_attention_cuda":
+        got, want = (got,), (want,)
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    scale = max(w.float().abs().max().item() for w in want)
+    launch()
+    ms = _event_ms(launch, 10)
+    entry = {"name": name, "route": "cuda", "max_abs_err": err, "max_abs_plain": scale,
+             "ms": ms, "plain_ms": plain_ms, "replaces": REPLACES[name]}
+    if name == "chunked_scan_cuda":
+        q, k, v, w, s0 = args
+        assert err <= SCAN_REL * scale, (err, scale)
+        bh, seq, kdim = q.shape
+        vdim = v.shape[2]
+        t = scan_kernel.TILE
+        rows = [min(t, seq - t0) for t0 in range(0, seq, t)]
+        pairs = sum(r * (r + 1) // 2 if kw["inclusive"] else r * (r - 1) // 2 for r in rows)
+        nbytes = 4 * (3 * bh * seq * kdim + 2 * bh * seq * vdim + 2 * bh * kdim * vdim)
+        flops = bh * (2 * pairs * (kdim + vdim) + 4 * seq * kdim * vdim)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        entry.update(source=SOURCES["ssd_scan"], library_ms=None,
+                     shape=[bh, seq, kdim, vdim], inclusive=kw["inclusive"])
+    else:
+        qf, kf, vf = args
+        bf16 = qf.dtype == torch.bfloat16
+        assert err <= (ATTN_REL if bf16 else 2e-5) * max(scale, 1.0), (err, scale)
+        bh, lq, d = qf.shape
+        lk = kf.shape[1]
+        q4, k4, v4 = (a.reshape(bh // heads, heads, -1, d) for a in (qf, kf, vf))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=kw["causal"], scale=kw["scale"])
+        lib_err = (sdpa().reshape(bh, lq, d).float() - want[0].float()).abs().max().item()
+        assert lib_err <= ATTN_REL * max(scale, 1.0), lib_err
+        library_ms = _event_ms(sdpa, 10)
+        pairs = lq * (lq + 1) // 2 if kw["causal"] else lq * lk
+        nbytes = qf.element_size() * bh * d * (2 * lq + 2 * lk)
+        flops = 4 * bh * d * pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S) * 1e3
+        entry.update(source=SOURCES["flash_attention"], library_ms=library_ms,
+                     library_max_abs_err=lib_err, shape=[bh, lq, lk, d],
+                     causal=kw["causal"], dtype=str(qf.dtype).split(".")[-1])
+    entry.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return entry
+
+
+def family_phase(arch, prompt, want_prefill, want_decode):
+    """One model served at full width and depth (steps 20-24): kernels
+    against the plain path (bf16 within twice the rounding floor, f32 at
+    PATH_REL_L2_F32), the launch counts of serve.run's prefill and decode,
+    finite logits and tokens inside the vocabulary, tokens/s over
+    SERVE_RUNS runs, and the first launch of every attention shape (or the
+    first scan launch) held against its twin and timed.  Returns the
+    paths' entries and {path: {kernel: launches}}."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.ssd_scan import kernel as scan_kernel
+    from repro_torch.kernels.ssd_scan import ops as scan_ops
+    from repro_torch.kernels.ssd_scan.ref import scan_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    argv = ["--arch", arch, "--requests", str(FAMILY_REQUESTS), "--prefill-len",
+            str(prompt), "--decode-steps", str(FAMILY_DECODE)]
+    args = serve.parse_args(argv)
+    cfg = serve.get_config(arch)
+    extra = _seeded_extra(cfg, FAMILY_REQUESTS)
+    t0 = time.perf_counter()
+    srv = serve.setup(args, extra=extra)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in srv.model.parameters())
+    print(f"{arch} ({cfg.family}): {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}, {n_params / 1e9:.3f} B parameters, set up in "
+          f"{time.perf_counter() - t0:.2f} s; {FAMILY_REQUESTS} x {prompt} prompt tokens"
+          + (f", seeded normal {list(extra)}" if extra else ""), flush=True)
+
+    # -- kernels vs plain path, bf16; keep the first launch of every shape ----
+    taps = {}
+
+    def tap(name, fn):
+        def tapped(*a, **kw):
+            key = (name, *(tuple(t.shape) for t in a[:2]), kw.get("causal"),
+                   kw.get("inclusive"), a[0].dtype)
+            if key not in taps:
+                taps[key] = ([t.clone() for t in a], dict(kw))
+            return fn(*a, **kw)
+        return tapped
+
+    scan_ops.chunked_scan_cuda = tap("chunked_scan_cuda", scan_kernel.chunked_scan_cuda)
+    attn_ops.flash_attention_cuda = tap("flash_attention_cuda",
+                                        attn_kernel.flash_attention_cuda)
+    try:
+        logits_k, cache = prefill(srv.model, srv.tokens, cfg, srv.flags, srv.extra,
+                                  pad_to=srv.max_seq)
+        assert logits_k.shape == (FAMILY_REQUESTS, 1, cfg.vocab)
+        assert torch.isfinite(logits_k).all(), f"{arch}: prefill logits"
+        tok = logits_k[:, -1].argmax(-1, keepdim=True)
+        logits_d, cache = decode_step(srv.model, tok, cache, cfg, srv.flags)
+        assert torch.isfinite(logits_d).all(), f"{arch}: decode logits"
+    finally:
+        scan_ops.chunked_scan_cuda = scan_kernel.chunked_scan_cuda
+        attn_ops.flash_attention_cuda = attn_kernel.flash_attention_cuda
+    del cache
+    plain_flags = dataclasses.replace(srv.flags, use_kernels=False)
+    run_plain = lambda m, c: prefill(m, srv.tokens, c, plain_flags, srv.extra)[0]
+    logits_p = run_plain(srv.model, cfg)
+    path_err = _rel_l2(logits_k[:, -1], logits_p[:, -1])
+    # the bf16 rounding floor: the plain path again with its kernel-bearing
+    # op summed in another exact order (attention: the kernel's twin; the
+    # scan: the sequential recurrence)
+    exact_attn, exact_scan = attn_ops.attention_ref, scan_ops.chunked_scan_plain
+    attn_ops.attention_ref = attn_kernel.flash_attention_plain
+    scan_ops.chunked_scan_plain = scan_ref
+    try:
+        logits_f = run_plain(srv.model, cfg)
+    finally:
+        attn_ops.attention_ref, scan_ops.chunked_scan_plain = exact_attn, exact_scan
+    floor = _rel_l2(logits_f[:, -1], logits_p[:, -1])
+    print(f"{arch} bf16 prefill, relative L2 of the last position's logits: kernels vs "
+          f"plain path {path_err:.3e}; rounding floor {floor:.3e}", flush=True)
+    assert path_err <= 2 * floor, (arch, path_err, floor)
+    del logits_p, logits_f
+
+    # -- the main path: serve.run (counts set to 0 just before, read after) --
+    wrappers = {"chunked_scan_cuda": scan_kernel.chunked_scan_cuda,
+                "flash_attention_cuda": attn_kernel.flash_attention_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    result = serve.run(srv)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"{arch} serve: {result}", flush=True)
+    pre = dict(zip(wrappers, want_prefill))
+    dec = {k: n * FAMILY_DECODE for k, n in zip(wrappers, want_decode)}
+    assert result["launches"] == {"prefill": pre, "decode": dec}, (arch, result["launches"])
+    assert launches == {k: pre[k] + dec[k] for k in wrappers}, (arch, launches)
+    assert all(0 <= t < cfg.vocab for t in result["sample_output"]), result
+    runs = [result] + [serve.run(srv) for _ in range(SERVE_RUNS - 1)]
+    rates = {key: [r[key] for r in runs]
+             for key in ("prefill_tokens_per_s", "decode_tokens_per_s")}
+    print(f"{arch} serve, {SERVE_RUNS} runs: prefill tokens/s "
+          f"{rates['prefill_tokens_per_s']}, decode tokens/s "
+          f"{rates['decode_tokens_per_s']}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    tokens, kernel_flags = srv.tokens, srv.flags
+    del srv, logits_k
+    torch.cuda.empty_cache()
+
+    # -- the same check in f32 (the same seed's weights, unrounded) ----------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = init_params(torch.Generator(device="cuda").manual_seed(serve.SEED), cfg32,
+                          device="cuda")
+    l32k = prefill(model32, tokens, cfg32, kernel_flags, extra)[0]
+    l32p = prefill(model32, tokens, cfg32, plain_flags, extra)[0]
+    path_err32 = _rel_l2(l32k[:, -1], l32p[:, -1])
+    print(f"{arch} f32 prefill, full depth: relative L2 of the last position's logits, "
+          f"kernels vs plain path {path_err32:.3e} (limit {PATH_REL_L2_F32})", flush=True)
+    assert path_err32 <= PATH_REL_L2_F32, (arch, path_err32)
+    del model32, l32k, l32p
+    torch.cuda.empty_cache()
+
+    # -- each tapped launch against its twin, timed ---------------------------
+    path = f"{arch} serve"
+    entries = []
+    for key, (a, kw) in taps.items():
+        e = _kernel_check(key[0], a, kw, cfg.n_heads)
+        e.update(path=path, launches=launches[key[0]], prefill_launches=pre[key[0]],
+                 decode_launches_per_step=dec[key[0]] // FAMILY_DECODE,
+                 prefill_tokens_per_s=result["prefill_tokens_per_s"],
+                 decode_tokens_per_s=result["decode_tokens_per_s"],
+                 prefill_tokens_per_s_runs=rates["prefill_tokens_per_s"],
+                 decode_tokens_per_s_runs=rates["decode_tokens_per_s"],
+                 path_rel_l2_bf16=path_err, path_rel_l2_floor_bf16=floor,
+                 path_rel_l2_f32=path_err32, params_b=n_params / 1e9)
+        entries.append(e)
+        print(f"{e['name']} on {arch} {e['shape']}"
+              + (f" causal={e['causal']} {e['dtype']}" if "causal" in e else
+                 f" inclusive={e['inclusive']}")
+              + f": {e['ms']:.4f} ms, plain {e['plain_ms']:.2f} ms, library "
+              f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)}"
+              f" ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), max abs err vs plain "
+              f"{e['max_abs_err']:.3e} (max |plain| {e['max_abs_plain']:.3e})", flush=True)
+    return entries, {path: launches}
+
+
+def families_phase():
+    """Steps 20-24: every family the port serves beside hybrid."""
+    import torch
+
+    paths, launches_by_path = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for step, (arch, prompt, pre, dec) in enumerate(FAMILIES, start=20):
+        t0 = time.perf_counter()
+        entries, launches = family_phase(arch, prompt, pre, dec)
+        paths += entries
+        launches_by_path.update(launches)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"step {step} ({arch}) took {time.perf_counter() - t0:.1f} s", flush=True)
     return paths, launches_by_path
 
 

@@ -5,12 +5,14 @@
 
 Walks the port's public API on a suite matrix: compile it into a VLIW
 `Program`, solve a batch of right-hand sides through the hand-written
-kernels (`make_solver(backend="cuda")`), solve again through the
-health-checked ladder (`robust_solver`), and serve a short stream of
-requests through the micro-batching service (`make_service`).  Every answer
-is held against the serial forward substitution.  Without ``--device`` it
-runs on CUDA and raises on a machine without a card; ``--device cpu`` runs
-the kernels' plain PyTorch versions.
+kernels (`make_solver(backend="cuda")`), split the columns over devices
+(`make_solver(mesh=...)`: every CUDA card, or two blocks on the one card
+of a one-card machine), solve again through the health-checked ladder
+(`robust_solver`), and serve a short stream of requests through the
+micro-batching service (`make_service`).  Every answer is held against the
+serial forward substitution.  Without ``--device`` it runs on CUDA and
+raises on a machine without a card; ``--device cpu`` runs the kernels'
+plain PyTorch versions (the mesh then names the CPU twice).
 """
 
 import argparse
@@ -18,7 +20,7 @@ import time
 
 import numpy as np
 
-from repro_torch.core import api
+from repro_torch.core import api, shard
 from repro_torch.core.serve import ManualClock
 
 
@@ -45,14 +47,27 @@ def main(argv=None) -> None:
     print(f"make_solver(backend='cuda'): placement {solver.placement}, "
           f"max err {np.abs(x - x_ref).max():.2e}")
 
-    # 3. the health-checked ladder: input and residual checks, incidents
+    # 3. the columns split over devices: each solves its own block of four
+    if args.device is None:
+        mesh = shard.batch_mesh()
+        if mesh.size == 1:
+            mesh = shard.batch_mesh(devices=mesh.devices * 2)
+    else:
+        mesh = shard.batch_mesh(devices=(args.device,) * 2)
+    sharded = api.make_solver(prog, batch=8, mesh=mesh, backend="cuda")
+    xs = sharded(b).cpu().numpy()
+    print(f"make_solver(mesh=...): {mesh.size} column blocks on "
+          f"{sorted({str(d) for d in mesh.devices})}, bit-identical to the "
+          f"unsharded solve: {np.array_equal(xs, x)}, max err {np.abs(xs - x_ref).max():.2e}")
+
+    # 4. the health-checked ladder: input and residual checks, incidents
     rs = api.robust_solver(prog, mat, backend="cuda", device=args.device)
     x = rs(b)
     print(f"robust_solver: answered on {rs.last_stage}, incidents "
           f"{[(i.stage, i.kind) for i in rs.last_incidents]}, "
           f"max err {np.abs(x - x_ref).max():.2e}")
 
-    # 4. the service: requests micro-batch into the kernels' padded widths
+    # 5. the service: requests micro-batch into the kernels' padded widths
     clock = ManualClock()
     svc = api.make_service({mat.name: mat}, backend="cuda", device=args.device,
                            clock=clock, timer=time.perf_counter, max_batch=8)

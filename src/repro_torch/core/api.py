@@ -56,8 +56,10 @@ PyTorch versions); `CompiledWorkload.solve` also takes ``"numpy"`` (the
 float64 oracle).  Executors are cached per (program identity, padded
 batch width, knobs, device), so repeated solves never rebuild.
 
-``mesh=`` (multi-GPU column sharding) raises ``NotImplementedError`` until
-the port has a multi-device path.
+``mesh=`` (a `shard.BatchMesh`, e.g. ``shard.batch_mesh()`` over every
+CUDA device) splits the B columns of a batched solve over devices: each
+device runs its own replica of the instruction stream on its column block
+and no collective runs (`core.shard`).
 """
 
 from __future__ import annotations
@@ -153,12 +155,6 @@ def recompile_values(prog: Program, mat: TriCSR) -> Program:
     return _recompile(prog, mat)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU column sharding) is not ported yet")
-
-
 def solve(prog: Program, b: np.ndarray, *, device=None) -> np.ndarray:
     """Solve Lx=b with the cached torch executor.
 
@@ -177,15 +173,19 @@ def solve_batch(prog: Program, b_matrix: np.ndarray, mesh=None,
     executor is cached per (program, padded width, knobs, device).  A 1-D
     ``b`` is treated as ``B=1`` and returns shape ``[n, 1]``.
 
+    ``mesh=`` (a `shard.BatchMesh`) splits the B columns over devices:
+    the instruction stream is replicated and each device solves its own
+    column block (`repro_torch.core.shard.make_sharded_solver`), cached per
+    (program, padded per-device width, mesh).
+
     ``backend="cuda"`` solves through the Hopper kernels (see `make_solver`
     for the placement knobs, including the row-blocked large-n path).
     Returns a numpy array.
     """
     validate_backend(backend, backend_opts)
-    _no_mesh(mesh)
     bmat, _ = as_batch(b_matrix)
-    solver = make_solver(prog, batch=bmat.shape[1], backend=backend,
-                         **backend_opts)
+    solver = make_solver(prog, batch=bmat.shape[1], mesh=mesh,
+                         backend=backend, **backend_opts)
     return solver(bmat).cpu().numpy()
 
 
@@ -194,7 +194,12 @@ def make_solver(prog: Program, batch: int | None = None, mesh=None,
     """Return a cached solve closure for `prog`.
 
     * ``batch=None`` — `solver(b[n]) -> x[n]`;
-    * ``batch=B``    — `solver(b[n, B]) -> x[n, B]` (batched multi-RHS).
+    * ``batch=B``    — `solver(b[n, B]) -> x[n, B]` (batched multi-RHS);
+    * ``batch=B, mesh=m`` — as above with the B columns split over the
+      devices of the `shard.BatchMesh` ``m`` (instruction stream
+      replicated, no collectives; see `repro_torch.core.shard`); the mesh
+      names the devices, so ``device=`` is refused, and the result lands
+      on the mesh's first device.
 
     The closure takes numpy arrays or tensors and returns a tensor on the
     solver's device.  ``device=`` (every backend) names that device, CUDA
@@ -206,7 +211,13 @@ def make_solver(prog: Program, batch: int | None = None, mesh=None,
     says which regime it took.
     """
     validate_backend(backend, backend_opts)
-    _no_mesh(mesh)
+    if mesh is not None:
+        if batch is None:
+            raise ValueError("mesh= requires an explicit batch size")
+        from .shard import make_sharded_solver
+
+        return make_sharded_solver(prog, batch, mesh, backend=backend,
+                                   **backend_opts)
     if backend == "cuda":
         return make_cuda_executor(prog, batch=batch, **backend_opts)
     return make_torch_executor(prog, batch=batch, **backend_opts)
@@ -434,7 +445,8 @@ def make_service(matrices=None, *, capacity: int = 32, disk_dir=None,
     ``backend`` ("numpy", "torch" or "cuda") and ``backend_opts`` choose
     the execution path per `make_solver`, shared by every flush;
     ``device`` (CUDA when None) is resolved at construction.  ``mesh=``
-    raises `NotImplementedError` (no multi-GPU path yet).
+    (a `shard.BatchMesh`) splits every flush's columns over its devices,
+    per `make_solver`.
 
     ``resilience`` (a `resilience.ResilienceConfig`, DESIGN.md §10) arms
     the resilient flush path: per-request deadlines

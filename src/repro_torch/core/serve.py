@@ -511,8 +511,10 @@ class SolveService:
     stages more than one executor per (program, padded width, backend
     knobs).  ``device`` is the device of the torch and cuda backends, CUDA
     when None, resolved here: a machine without CUDA raises at
-    construction instead of degrading every flush.  ``mesh=`` raises
-    `NotImplementedError` (no multi-GPU path yet).
+    construction instead of degrading every flush.  ``mesh=`` (a
+    `shard.BatchMesh`) splits every flush's columns over its devices,
+    through `api.make_solver`; the mesh then names the devices (no
+    ``device=``) and answers land on its first device.
     """
 
     def __init__(self, cache: ProgramCache | None = None, *,
@@ -531,12 +533,14 @@ class SolveService:
         else:
             from repro_torch.kernels.common import resolve_device
 
-            from .api import _no_mesh
-
             validate_backend(backend, {} if backend == "torch"
                              else backend_opts)
-            _no_mesh(mesh)
+            if mesh is not None:
+                from .shard import mesh_device
+
+                device = mesh_device(mesh, device)
             self.device = resolve_device(device)
+        self.mesh = mesh
         self.cache = cache if cache is not None else ProgramCache()
         self.max_batch = int(max_batch)
         self.max_delay = float(max_delay)
@@ -735,7 +739,13 @@ class SolveService:
         from .api import make_solver
 
         return make_solver(prog, batch=k, backend=self.backend,
-                           device=self.device, **self.backend_opts)
+                           **self._where(), **self.backend_opts)
+
+    def _where(self) -> dict:
+        """Where a flush solves: the mesh, or the service's device."""
+        if self.mesh is not None:
+            return {"mesh": self.mesh}
+        return {"device": self.device}
 
     def _flush(self, matrix_id: str, now: float, reason: str,
                count: int | None = None) -> None:
@@ -843,7 +853,7 @@ class SolveService:
         opts = {kk: v for kk, v in self.backend_opts.items()
                 if kk != "placement"}
         return make_solver(prog, batch=k, backend="cuda", placement=placement,
-                           device=self.device, **opts)
+                           **self._where(), **opts)
 
     def _resilient_solve(self, matrix_id: str, prog: Program,
                          bmat: np.ndarray, k: int):

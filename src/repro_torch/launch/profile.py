@@ -4,7 +4,8 @@ of `launch/serve.py` under ``torch.profiler``.
     PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2-2.7b \\
         --requests 8 --prefill-len 1000 --decode-steps 32
 
-Takes the server's flags.  After one warm-up prefill and decode step it
+Takes the server's flags and runs any arch the server runs (the vlm and
+encdec stubs' inputs included).  After one warm-up prefill and decode step it
 profiles one more of each and prints, per phase: the host wall time, the
 device's busy time (the sum of its kernels' times: one stream, so they do
 not overlap) and idle share, the busy time by kind (the port's two
@@ -73,7 +74,8 @@ def main(argv=None) -> dict:
     if srv.tokens.device.type != "cuda":
         raise RuntimeError("profiling needs the CUDA device")
     cfg, flags, model = srv.cfg, srv.flags, srv.model
-    run_prefill = lambda: prefill(model, srv.tokens, cfg, flags, pad_to=srv.max_seq)
+    run_prefill = lambda: prefill(model, srv.tokens, cfg, flags, srv.extra,
+                                  pad_to=srv.max_seq)
     logits, cache = run_prefill()                                  # warm-up
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     decode_step(model, tok, cache, cfg, flags)

@@ -14,7 +14,7 @@ Conventions kept from the reference, so that weights carry across
 ``RuntimeFlags.use_kernels`` takes the place of the reference's
 ``use_pallas``/``interpret`` pair: True runs the hand-written kernels
 (their plain twins for CPU tensors).  The reference's mesh arguments and
-``shard()`` drop out: this slice runs on one device.
+``shard()`` drop out: a model runs on one device.
 """
 
 from __future__ import annotations
@@ -139,49 +139,62 @@ class Attention(nn.Module):
         self.wo = Linear(hq * hd, d, scale=(hq * hd) ** -0.5, **kw)
 
 
-def attention(p: Attention, x, cfg, flags: RuntimeFlags, positions=None):
-    """Causal self-attention over a full sequence (prefill).
+def attention(p: Attention, x, cfg, flags: RuntimeFlags, positions=None,
+              kv_x=None, causal: bool = True, use_rope: bool = True):
+    """Full-sequence attention (prefill): self-attention over ``x``, or
+    cross-attention to ``kv_x`` (an encoder's or the vision frontend's
+    output, never causal and never roped).
 
-    x: ``[B, L, d]``.  Returns ``(out [B, L, d], {"k", "v": [B, L, Hkv, D]})``,
-    the roped keys and values for the decode cache.
+    x: ``[B, L, d]``; kv_x: ``[B, Lk, d]`` or None.  Returns ``(out [B, L,
+    d], {"k", "v": [B, Lk, Hkv, D]})``, the (roped) keys and values for
+    the decode cache.
     """
     b, l, _ = x.shape
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    fold = lambda t, h: t.reshape(b, l, h, hd).transpose(1, 2).reshape(b * h, l, hd)
-    qf = constrain_folded(fold(linear(p.wq, x), hq), b * hq)
-    kf = constrain_folded(fold(linear(p.wk, x), hkv), b * hkv)
-    vf = constrain_folded(fold(linear(p.wv, x), hkv), b * hkv)
-    if positions is None:
-        positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
-    posf = lambda h: positions[:, None, :].expand(b, h, l).reshape(b * h, l)
-    qf = rope_folded(qf, posf(hq), cfg.rope_theta)
-    kf = rope_folded(kf, posf(hkv), cfg.rope_theta)
-    of = gqa_attention_folded(qf, kf, vf, batch=b, causal=True,
+    src = x if kv_x is None else kv_x
+    lk = src.shape[1]
+    fold = lambda t, h, n: t.reshape(b, n, h, hd).transpose(1, 2).reshape(b * h, n, hd)
+    qf = constrain_folded(fold(linear(p.wq, x), hq, l), b * hq)
+    kf = constrain_folded(fold(linear(p.wk, src), hkv, lk), b * hkv)
+    vf = constrain_folded(fold(linear(p.wv, src), hkv, lk), b * hkv)
+    if use_rope and kv_x is None:
+        if positions is None:
+            positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
+        posf = lambda h: positions[:, None, :].expand(b, h, l).reshape(b * h, l)
+        qf = rope_folded(qf, posf(hq), cfg.rope_theta)
+        kf = rope_folded(kf, posf(hkv), cfg.rope_theta)
+    of = gqa_attention_folded(qf, kf, vf, batch=b, causal=causal and kv_x is None,
                               use_kernels=flags.use_kernels,
                               block_k=flags.attn_block_k)
     o3 = of.reshape(b, hq, l, hd).transpose(1, 2).reshape(b, l, hq * hd)
     out = linear(p.wo, o3)
-    k4 = kf.reshape(b, hkv, l, hd).transpose(1, 2)
-    v4 = vf.reshape(b, hkv, l, hd).transpose(1, 2)
+    k4 = kf.reshape(b, hkv, lk, hd).transpose(1, 2)
+    v4 = vf.reshape(b, hkv, lk, hd).transpose(1, 2)
     return out, {"k": k4, "v": v4}
 
 
-def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
+def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg,
+                     update_cache: bool = True):
     """One-token decode against a pre-allocated KV cache.
 
-    x: ``[B, 1, d]``; cache_k, cache_v: ``[B, S, Hkv, D]``, updated in place
+    x: ``[B, 1, d]``; cache_k, cache_v: ``[B, S, Hkv, D]``.  With
+    ``update_cache`` the token's roped key and value are written in place
     at ``pos`` (the reference returns a new cache; writing in place saves a
-    copy of the cache per step).  Returns ``out [B, 1, d]``.
+    copy of the cache per step) and q is roped at ``pos``; without it
+    (cross-attention to a fixed cache) nothing is written and q is not
+    roped, as in the reference.  Keys past ``pos`` are masked.  Returns
+    ``out [B, 1, d]``.
     """
     b = x.shape[0]
     hd = cfg.hd
     q = linear(p.wq, x).reshape(b, 1, cfg.n_heads, hd)
-    k_new = linear(p.wk, x).reshape(b, 1, cfg.n_kv_heads, hd)
-    v_new = linear(p.wv, x).reshape(b, 1, cfg.n_kv_heads, hd)
-    positions = torch.full((b, 1), pos, device=x.device)
-    cache_k[:, pos:pos + 1] = rope(k_new, positions, cfg.rope_theta)
-    cache_v[:, pos:pos + 1] = v_new
-    q = rope(q, positions, cfg.rope_theta)
+    if update_cache:
+        k_new = linear(p.wk, x).reshape(b, 1, cfg.n_kv_heads, hd)
+        v_new = linear(p.wv, x).reshape(b, 1, cfg.n_kv_heads, hd)
+        positions = torch.full((b, 1), pos, device=x.device)
+        cache_k[:, pos:pos + 1] = rope(k_new, positions, cfg.rope_theta)
+        cache_v[:, pos:pos + 1] = v_new
+        q = rope(q, positions, cfg.rope_theta)
     group = cfg.n_heads // cfg.n_kv_heads
     kq = cache_k.repeat_interleave(group, dim=2) if group > 1 else cache_k
     vq = cache_v.repeat_interleave(group, dim=2) if group > 1 else cache_v

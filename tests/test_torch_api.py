@@ -85,11 +85,21 @@ def test_report_matches_reference():
 
 
 def test_mesh_not_ported_yet():
+    """mesh= is ported (tests/test_torch_shard.py): a BatchMesh splits the
+    columns; anything else is refused, as is a device= beside it."""
+    from repro_torch.core import shard
+
     prog = api.compile(api.matrix("band_cz"))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         api.make_solver(prog, batch=2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         api.solve_batch(prog, np.zeros((prog.n, 2)), mesh=object(), device="cpu")
+    mesh = shard.batch_mesh(devices=("cpu", "cpu"))
+    with pytest.raises(ValueError, match="mesh"):
+        api.solve_batch(prog, np.zeros((prog.n, 2)), mesh=mesh, device="cpu")
+    b = np.random.default_rng(3).standard_normal((prog.n, 2))
+    np.testing.assert_array_equal(api.solve_batch(prog, b, mesh=mesh),
+                                  api.solve_batch(prog, b, device="cpu"))
 
 
 def test_ops_solve_keeps_rhs_shape():

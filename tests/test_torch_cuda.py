@@ -23,7 +23,14 @@ result's largest value (f32, sums in another order; the kernel's 3xTF32
 products keep ~f32 accuracy); attention at 2e-5 in f32 (the f32 kernel stays on the CUDA
 cores) and 2e-2 of the largest value in bf16 (the kernel rounds P to bf16
 for the PV product, as scaled_dot_product_attention does); the reduced
-Zamba2 prefill on the kernels against the plain path at 1e-4.
+Zamba2 prefill on the kernels against the plain path at 1e-4.  The
+families' shapes: attention at the llama-vision cross shape (Lq 1,000,
+Lk 1,601, D 128), whisper's one-row decode cross-attention (Lk 1,500) and
+its bidirectional encoder (1,500 x 1,500), in f32 and bf16; the exclusive
+scan at RWKV6's prefill shape (BH 256, L 1,000, K = V = 64); the column
+split over (cuda:0, cuda:0), bit for bit the unsharded solve; and each
+family's reduced prefill on the kernels against the plain path at 1e-4,
+with its launch counts.
 """
 
 import numpy as np
@@ -578,3 +585,105 @@ def test_reduced_zamba2_prefill_on_kernels_matches_plain(cuda):
             flash_attention_cuda.launches - before[1]) == (6, 2)
     want, _ = prefill(model, tokens, cfg, RuntimeFlags(use_kernels=False))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lk,d,causal", [
+    (16, 1000, 1601, 128, False),   # llama-vision cross-attention to 1,601 vision tokens
+    (64, 1, 1500, 64, False),       # whisper decode: one query row over 1,500 frames
+    (16, 1500, 1500, 64, False),    # whisper's bidirectional encoder
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_the_families_shapes(cuda, bh, lq, lk, d, causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(lq + lk + d)
+    q, k, v = (torch.randn((bh, n, d), generator=g, device=cuda).to(dtype)
+               for n in (lq, lk, lk))
+    before = flash_attention_cuda.launches
+    o = flash_attention_cuda(q, k, v, scale=d ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1 and o.dtype == dtype
+    op = flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, op, rtol=2e-5, atol=2e-5)
+    else:
+        _scaled_close(o, op, 2e-2)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_exclusive_at_the_rwkv6_shape(cuda):
+    """RWKV6-1.6B's prefill scan: 8 requests x 32 heads, 1,000 tokens, K = V = 64."""
+    q, k, v, w, s0 = _scan_inputs(cuda, 256, 1000, 64, 64)
+    before = chunked_scan_cuda.launches
+    y, sf = chunked_scan_cuda(q, k, v, w, s0, inclusive=False)
+    torch.cuda.synchronize()
+    assert chunked_scan_cuda.launches == before + 1
+    yp, sfp = chunked_scan_plain(q, k, v, w, s0, inclusive=False)
+    _scaled_close(y, yp, 2e-4)
+    _scaled_close(sf, sfp, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,placement,cpb", [("band_cz", "blocked", 64),
+                                                ("ckt_rajat04", "resident", 128)])
+@pytest.mark.parametrize("batch", [1, 5, 16])
+def test_sharded_solver_on_card_is_bit_identical(cuda, name, placement, cpb, batch):
+    """Two column blocks on the one card: one launch each, the unsharded
+    solve's bits at the same placement."""
+    from repro_torch.core import shard
+
+    mat = api.matrix(name)
+    prog = api.compile(mat)
+    b = np.random.default_rng(batch).standard_normal((mat.n, batch)).astype(np.float32)
+    knobs = dict(backend="cuda", placement=placement, cycles_per_block=cpb)
+    want = api.make_solver(prog, batch=batch, **knobs)(b)
+    mesh = shard.batch_mesh(devices=("cuda:0", "cuda:0"))
+    solver = shard.make_sharded_solver(prog, batch, mesh, **knobs)
+    wrapper = kernel.sptrsv_cuda_blocked if placement == "blocked" else kernel.sptrsv_cuda
+    before = wrapper.launches
+    got = solver(b)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2 and solver.placement == placement
+    assert got.device == torch.device("cuda", 0)
+    torch.testing.assert_close(got, want, **EXACT)
+    ref = np.stack([serial_solve(mat, b[:, i].astype(np.float64)) for i in range(batch)], 1)
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+FAMILY_LAUNCHES = {  # (scan, attention) per reduced prefill
+    "smollm-360m": (0, 4), "granite-moe-1b-a400m": (0, 4), "arctic-480b": (0, 4),
+    "rwkv6-1.6b": (4, 0), "whisper-base": (0, 2 + 4 + 4),
+    "llama-3.2-vision-11b": (0, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAUNCHES))
+def test_reduced_family_prefill_on_kernels_matches_plain(cuda, arch):
+    from repro_torch.models import decode_step
+
+    cfg = get_config(arch).reduced()
+    model = init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 100))).to(cuda)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["vision"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)).to(cuda)
+    if cfg.family == "encdec":
+        extra["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_frames, cfg.d_model)).astype(np.float32)).to(cuda)
+    before = (chunked_scan_cuda.launches, flash_attention_cuda.launches)
+    got, cache = prefill(model, tokens, cfg, RuntimeFlags(use_kernels=True), extra,
+                         pad_to=104)
+    assert (chunked_scan_cuda.launches - before[0],
+            flash_attention_cuda.launches - before[1]) == FAMILY_LAUNCHES[arch]
+    want, _ = prefill(model, tokens, cfg, RuntimeFlags(use_kernels=False), extra)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    before = flash_attention_cuda.launches
+    logits, _ = decode_step(model, got[:, -1].argmax(-1, keepdim=True), cache, cfg,
+                            RuntimeFlags(use_kernels=True))
+    assert torch.isfinite(logits).all()
+    # encdec's decode reruns cross-attention through the kernel, one query row
+    assert flash_attention_cuda.launches - before == (
+        cfg.n_layers if cfg.family == "encdec" else 0)

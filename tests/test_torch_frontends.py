@@ -17,7 +17,7 @@ from repro.core import api as ref_api
 from repro.core import csr as ref_csr
 from repro.core.frontends import dagcirc as ref_dagcirc
 from repro.core.frontends import upper as ref_upper
-from repro_torch.core import api, matrices
+from repro_torch.core import api, matrices, shard
 from repro_torch.core.csr import (
     from_coo,
     serial_solve,
@@ -168,8 +168,10 @@ def test_workload_solve_argument_rules():
     b = np.zeros(30)
     with pytest.raises(ValueError, match="numpy"):
         cw.solve(b, backend="numpy", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cw.solve(b, mesh=object(), **CPU)
+    with pytest.raises(TypeError, match="mesh"):
+        cw.solve(b, mesh=object())
+    with pytest.raises(ValueError, match="mesh"):
+        cw.solve(b, mesh=shard.batch_mesh(devices=("cpu",)), **CPU)
     from repro_torch.core.errors import UnknownBackendError
 
     with pytest.raises(UnknownBackendError):

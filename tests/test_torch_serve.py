@@ -14,7 +14,9 @@ written by either package rehydrating in the other without a compile.
 The port's own rules: a flush whose solver returns a device tensor (one
 that refuses ``np.asarray``, as a CUDA tensor does) delivers without an
 incident, a machine without CUDA raises when a service is constructed, and
-``mesh=`` raises.  All on the CPU (``device="cpu"``).
+``mesh=`` takes only a `shard.BatchMesh` and no ``device=`` beside it
+(tests/test_torch_shard.py runs the sharded streams).  All on the CPU
+(``device="cpu"``).
 """
 
 import dataclasses
@@ -29,7 +31,7 @@ from repro.core import api as ref_api
 from repro.core import executor as ref_executor
 from repro.core import matrices as ref_matrices
 from repro.core import serve as ref_serve
-from repro_torch.core import api, executor, matrices, serve
+from repro_torch.core import api, executor, matrices, serve, shard
 from repro_torch.core.csr import from_coo
 from repro_torch.core.errors import ProgramCorruptionError
 from repro_torch.core.matrices import generate, suite_names
@@ -286,10 +288,14 @@ def test_service_arg_validation():
     with pytest.raises(ValueError):
         SolveService(backend="bogus", **CPU)
     for backend in ("torch", "cuda"):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="mesh"):
             SolveService(backend=backend, mesh=object(), **CPU)
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="mesh"):
             api.make_service(backend=backend, mesh=object(), **CPU)
+        mesh = shard.batch_mesh(devices=("cpu",))
+        with pytest.raises(ValueError, match="mesh"):
+            SolveService(backend=backend, mesh=mesh, **CPU)
+        assert SolveService(backend=backend, mesh=mesh).device.type == "cpu"
 
 
 # ------------------------------------------------------ executor contract
