@@ -145,9 +145,34 @@ seeded normal vision / frames inputs in place of the server's zero stubs):
      step held against its twin, timed beside scaled_dot_product_attention
      and the card's bound.
 
+Then training (launch/train.py, launch/steps.py), which runs no kernel: the
+reference trains on its plain paths (use_pallas=False) and no kernel of
+either package has a backward pass:
+
+  25. smollm-360m at full width and depth (32 layers, bf16 compute over f32
+     master weights, remat, AdamW), B = 8, S = 256, 30 steps of
+     train.main at the reference's lr 3e-3 and warmup 20 with a checkpoint
+     every 10 steps into a fresh build/train_ckpt: the loss at steps 1 and
+     30 (finite), the median step after 3, tokens/s, peak device memory and
+     zero launches of the four kernels; then train.main again with --steps
+     36 restores step 30 and takes 6 steps; then 10 steps on one fixed
+     batch lower its loss by more than MEMO_DROP (the step learns; 30
+     fresh batches at lr 3e-3 do not lower the loss, nor do they in the
+     reference's trainer at full width and 2 layers, PERF.md);
+  26. the gradient on the card against the CPU: smollm-360m at full width,
+     f32, 2 layers, B = 2, S = 64, the same weights: loss within 1e-5
+     relative, every gradient leaf within 1e-4 relative L2, one AdamW step's
+     parameters within 1e-5 relative L2 (entries whose moments the two runs
+     do not resolve, where AdamW's update is rounding over rounding, held
+     to 2 lr); then one
+     train step of granite-moe-1b-a400m (aux > 0), rwkv6-1.6b, zamba2-2.7b,
+     whisper-base and llama-3.2-vision-11b at full width with the fewest
+     layers (groups) that keep each structure, bf16 over f32 master
+     weights: finite loss, finite grad norm > 0, no kernel launch.
+
 Launch counters are set to 0 right before each main-path run (and each
-path of steps 7-11 and 15-24) and read right after it.  It prints one
-{"kernels": [...], "paths": [...]} line and, last,
+path of steps 7-11 and 15-26) and read right after it.  It prints one
+{"kernels": [...], "paths": [...], "training": [...]} line and, last,
 {"ok": true, "device": {...}}; any failed check raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing a result.
@@ -455,12 +480,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     more_paths, model_launches = families_phase()
     paths += more_paths
+    torch.cuda.empty_cache()
+    training, train_launches = train_phase()
+    model_launches.update(train_launches)
     for e in entries:
         if e["name"] in wrappers:
             e["launches_by_path"] = {path: n[e["name"]] for path, n in launches_by_path.items()}
         else:
             e["launches_by_path"] = {path: n[e["name"]] for path, n in model_launches.items()}
-    print(json.dumps({"kernels": entries, "paths": paths}))
+    print(json.dumps({"kernels": entries, "paths": paths, "training": training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1622,6 +1650,273 @@ def families_phase():
         torch.cuda.reset_peak_memory_stats()
         print(f"step {step} ({arch}) took {time.perf_counter() - t0:.1f} s", flush=True)
     return paths, launches_by_path
+
+
+# -- steps 25-26: training on the card ------------------------------------------
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 20           # launch/train.py's defaults
+TRAIN_ARGV = ["--arch", "smollm-360m", "--batch", "8", "--seq", "256", "--lr",
+              str(TRAIN_LR), "--ckpt-every", "10", "--log-every", "10", "--device", "cuda"]
+TRAIN_STEPS, TRAIN_RESTART_STEPS, TRAIN_WARM = 30, 36, 3
+MEMO_STEPS, MEMO_DROP = 10, 1.0
+GRAD_LAYERS, GRAD_BATCH, GRAD_SEQ = 2, 2, 64
+GRAD_LOSS_REL, GRAD_LEAF_REL, ADAMW_PARAM_REL = 1e-5, 1e-4, 1e-5
+FAMILY_TRAIN = (  # arch, the fewest layers (groups) that keep its structure
+    ("granite-moe-1b-a400m", {"n_layers": 2}),
+    ("rwkv6-1.6b", {"n_layers": 2}),
+    ("zamba2-2.7b", {"n_layers": 6}),                    # one group: 6 Mamba2 + shared
+    ("whisper-base", {"n_layers": 2, "enc_layers": 2}),
+    ("llama-3.2-vision-11b", {"n_layers": 5}),           # one group: 4 self + 1 cross
+)
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 2, 256
+
+
+def _all_wrappers():
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
+    from repro_torch.kernels.sptrsv import kernel
+    from repro_torch.kernels.ssd_scan import kernel as scan_kernel
+
+    return {"sptrsv_cuda": kernel.sptrsv_cuda,
+            "sptrsv_cuda_blocked": kernel.sptrsv_cuda_blocked,
+            "chunked_scan_cuda": scan_kernel.chunked_scan_cuda,
+            "flash_attention_cuda": attn_kernel.flash_attention_cuda}
+
+
+def _adamw_param_check(got, want, m_got, m_want, lr):
+    """Per leaf relative L2 of the parameters after one AdamW step, leaving
+    out the entries whose gradient the two runs do not resolve: the new
+    moments differ by more than 10%.  There AdamW's lr * m / sqrt(v) turns
+    rounding into an update of up to lr of either sign, so those entries
+    are held to 2.01 * lr elementwise (|m_hat / sqrt(v_hat)| <= 1 at step
+    1) and must have near-zero moments (at most 1e-4 of the leaf's
+    largest).  Arguments: {parameter name: host tensor}.  Returns (worst
+    relative L2, entries left out)."""
+    worst, left_out = 0.0, 0
+    for key, w in want.items():
+        g, mw = got[key].float(), m_want[key]
+        loose = (m_got[key] - mw).abs() > 0.1 * mw.abs()
+        assert (mw[loose].abs() <= 1e-4 * mw.abs().max()).all(), key
+        err = ((g[~loose] - w[~loose]).norm() / w[~loose].norm()).item()
+        assert err <= ADAMW_PARAM_REL, (key, err)
+        assert ((g[loose] - w[loose]).abs() <= 2.01 * lr).all(), key
+        worst, left_out = max(worst, err), left_out + int(loose.sum())
+    return worst, left_out
+
+
+def _train_restart(ckpt_dir):
+    """Step 25: smollm-360m trained at full width and depth through
+    launch/train.main, then restarted from its checkpoint."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = TRAIN_ARGV + ["--ckpt-dir", ckpt_dir]
+    wrappers = _all_wrappers()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    r1 = train.main(argv + ["--steps", str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.median(r1["step_ms"][TRAIN_WARM:]))
+    batch, seq = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--seq") + 1])
+    ckpt_gib = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt_dir)
+                   for f in fs) / 2**30
+    print(f"step 25, smollm-360m training (B={batch}, S={seq}, bf16 compute over f32 "
+          f"master weights, {TRAIN_STEPS} steps, remat, AdamW, checkpoints every 10): "
+          f"loss step 1 {r1['first_loss']:.4f}, step {TRAIN_STEPS} {r1['last_loss']:.4f}; "
+          f"median step {step_ms:.2f} ms after {TRAIN_WARM} (first {r1['step_ms'][0]:.1f} "
+          f"ms), {batch * seq / step_ms * 1e3:.0f} tokens/s, peak {peak:.2f} GiB, "
+          f"{wall:.1f} s in all, checkpoints on disk {ckpt_gib:.2f} GiB; launches "
+          f"{launches}", flush=True)
+    assert r1["steps"] == TRAIN_STEPS and np.isfinite(r1["step_ms"]).all()
+    # no check that loss 30 < loss 1: at lr 3e-3 and warmup 20 the
+    # reference's own trainer raises the loss over these 30 batches too, at
+    # full width cut to 2 layers on the CPU (10.989 -> 11.164; the port
+    # 11.130; scripts/train_curves.py, PERF.md Findings).  30 batches hold
+    # 61,440 tokens against the chain's 1.57 M transitions (8 tables x
+    # 49,152 tokens x 4 successors), so few repeat and there is little to
+    # learn past ln(vocab) = 10.80; the reference was not run at all 32
+    # layers.  _memorize shows the step learns.
+    assert np.isfinite(r1["first_loss"]) and np.isfinite(r1["last_loss"])
+    assert not any(launches.values()), launches    # the reference trains on plain paths
+    assert latest_step(ckpt_dir) == TRAIN_STEPS
+
+    t0 = time.perf_counter()
+    r2 = train.main(argv + ["--steps", str(TRAIN_RESTART_STEPS)])
+    restart_s = time.perf_counter() - t0
+    print(f"step 25 restart with --steps {TRAIN_RESTART_STEPS}: resumed at "
+          f"{TRAIN_STEPS}, took {r2['steps']} steps, loss {r2['first_loss']:.4f} -> "
+          f"{r2['last_loss']:.4f}, {restart_s:.1f} s", flush=True)
+    assert r2["steps"] == TRAIN_RESTART_STEPS - TRAIN_STEPS, r2
+    assert np.isfinite(r2["last_loss"])
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    memo = _memorize(TRAIN_ARGV + ["--steps", str(TRAIN_STEPS)])
+    return {"path": "smollm-360m train", "batch": batch, "seq": seq, "memorize": memo,
+            "steps": TRAIN_STEPS, "loss_first": r1["first_loss"],
+            "loss_last": r1["last_loss"], "step_ms_median": step_ms,
+            "step_ms": r1["step_ms"], "tokens_per_s": batch * seq / step_ms * 1e3,
+            "peak_gib": peak, "checkpoint_gib": ckpt_gib, "launches": launches,
+            "restart_steps": r2["steps"], "restart_s": restart_s}
+
+
+def _memorize(argv):
+    """The train step learns: MEMO_STEPS steps of train.setup's trainer
+    (launch/train.py's model, lr and warmup, from its flags ``argv``) on one
+    fixed batch of its data lower that batch's loss by more than MEMO_DROP
+    (a factor e of perplexity)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train
+
+    tr = train.setup(train.parse_args(argv))
+    fixed = tr.batch(0)
+    losses = [float(tr.train_step(tr.model, tr.opt_state, fixed)["loss"])
+              for _ in range(MEMO_STEPS)]
+    print(f"step 25, {MEMO_STEPS} steps on one fixed batch (lr {TRAIN_LR}, warmup "
+          f"{TRAIN_WARMUP}): loss " + " ".join(f"{x:.3f}" for x in losses), flush=True)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0] - MEMO_DROP, losses
+    del tr
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _grad_check():
+    """Step 26a: smollm-360m at full width, f32, GRAD_LAYERS layers: loss,
+    every gradient leaf and one AdamW step on the card against the CPU on
+    the same weights."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import RuntimeFlags, init_params, train_forward
+    from repro_torch.optim import adamw_init
+
+    host = lambda named: {n: t.detach().cpu() for n, t in named.items()}
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=GRAD_LAYERS,
+                              dtype="float32")
+    cpu = init_params(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(SEED)
+    tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab, (GRAD_BATCH, GRAD_SEQ)))
+                      for _ in range(2))
+    flags = RuntimeFlags(use_kernels=False, remat=True)
+    out = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        dev = next(model.parameters()).device
+        model.requires_grad_(True)
+        loss, _ = train_forward(model, tokens.to(dev), labels.to(dev), cfg, flags)
+        loss.backward()
+        out[name] = (loss.item(), host({n: p.grad for n, p in model.named_parameters()}))
+        model.zero_grad(set_to_none=True)
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    want, got = out["cpu"][1], out["cuda"][1]
+    grad_rel = {k: ((got[k] - w).norm() / w.norm()).item() for k, w in want.items()}
+    assert loss_rel <= GRAD_LOSS_REL, loss_rel
+    assert max(grad_rel.values()) <= GRAD_LEAF_REL, grad_rel
+
+    step = make_train_step(cfg, flags, lr=TRAIN_LR, warmup=TRAIN_WARMUP, total=TRAIN_STEPS)
+    opts, mets = {}, {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        dev = next(model.parameters()).device
+        opts[name] = adamw_init(model)
+        mets[name] = step(model, opts[name], {"tokens": tokens.to(dev),
+                                              "labels": labels.to(dev)})
+    param_rel, left_out = _adamw_param_check(
+        host(dict(gpu.named_parameters())), host(dict(cpu.named_parameters())),
+        host(opts["cuda"]["m"]), opts["cpu"]["m"], mets["cpu"]["lr"])
+    print(f"step 26, the gradient on the card vs the CPU (smollm-360m full width, f32, "
+          f"{GRAD_LAYERS} layers, B={GRAD_BATCH}, S={GRAD_SEQ}, same weights): loss "
+          f"{out['cpu'][0]:.6f}, relative difference {loss_rel:.2e} (limit "
+          f"{GRAD_LOSS_REL}); worst gradient leaf relative L2 {max(grad_rel.values()):.2e} "
+          f"({max(grad_rel, key=grad_rel.get)}, limit {GRAD_LEAF_REL}) over {len(want)} "
+          f"leaves; one AdamW step: grad norm {float(mets['cuda']['grad_norm']):.5f} vs "
+          f"{float(mets['cpu']['grad_norm']):.5f}, worst parameter leaf relative L2 "
+          f"{param_rel:.2e} (limit {ADAMW_PARAM_REL}; {left_out} entries whose moments "
+          f"differ by over 10%, held to 2 lr instead)", flush=True)
+    del cpu, gpu
+    return {"path": "smollm-360m gradient cuda vs cpu", "loss_rel": loss_rel,
+            "grad_leaf_rel_l2_max": max(grad_rel.values()), "adamw_param_rel_l2_max":
+            param_rel, "adamw_entries_unresolved": left_out}
+
+
+def _family_train_step(arch, cut):
+    """Step 26b: one train_step of ``arch`` at full width, bf16 compute over
+    f32 master weights, at the fewest layers (groups) that keep its
+    structure."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import RuntimeFlags, init_params
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                        device="cuda", param_dtype=torch.float32)
+    opt = adamw_init(model)
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (FAMILY_TRAIN_BATCH,
+                                                               FAMILY_TRAIN_SEQ))).cuda()
+             for k in ("tokens", "labels")}
+    batch.update(_seeded_extra(cfg, FAMILY_TRAIN_BATCH))
+    wrappers = _all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    step = make_train_step(cfg, RuntimeFlags(use_kernels=False, remat=True), lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP, total=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    met = step(model, opt, batch)
+    loss, gnorm, aux = (float(met[k]) for k in ("loss", "grad_norm", "aux"))
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: w.launches for k, w in wrappers.items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"step 26 {arch} ({cfg.family}, {cut}, {n_params / 1e9:.3f} B parameters, "
+          f"B={FAMILY_TRAIN_BATCH}, S={FAMILY_TRAIN_SEQ}): loss {loss:.4f}, aux {aux:.4f}, "
+          f"grad norm {gnorm:.4f}, first step {ms:.0f} ms, peak {peak:.2f} GiB, launches "
+          f"{launches}", flush=True)
+    assert np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0, (arch, met)
+    assert cfg.family != "moe" or aux > 0, (arch, aux)
+    assert not any(launches.values()), launches
+    del model, opt
+    return {"path": f"{arch} train step", "family": cfg.family, "cut": cut,
+            "params_b": n_params / 1e9, "loss": loss, "aux": aux, "grad_norm": gnorm,
+            "first_step_ms": ms, "peak_gib": peak, "launches": launches}
+
+
+def train_phase():
+    """Steps 25-26.  Returns the training records and {path: {kernel:
+    launches}} (all zero: training runs the plain paths, as the
+    reference's does)."""
+    import torch
+
+    records = [_train_restart(os.path.join(ROOT, "build", "train_ckpt"))]
+    records.append(_grad_check())
+    for arch, cut in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        records.append(_family_train_step(arch, cut))
+        torch.cuda.empty_cache()
+        print(f"step 26 ({arch}) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return records, {r["path"]: r["launches"] for r in records if "launches" in r}
 
 
 if __name__ == "__main__":

@@ -12,4 +12,5 @@ from .model import (  # noqa: F401
     init_cache,
     init_params,
     prefill,
+    train_forward,
 )

@@ -15,6 +15,12 @@ Conventions kept from the reference, so that weights carry across
 ``use_pallas``/``interpret`` pair: True runs the hand-written kernels
 (their plain twins for CPU tensors).  The reference's mesh arguments and
 ``shard()`` drop out: a model runs on one device.
+
+Parameters are built with ``requires_grad=False``: serving needs no
+gradient, and the functions here then return plain tensors outside
+``no_grad``.  Training switches them on (``model.requires_grad_(True)``,
+`launch.steps.make_train_step`); the functions are autograd-safe (no
+in-place write into a tensor that autograd saved).
 """
 
 from __future__ import annotations
@@ -51,6 +57,10 @@ class RuntimeFlags:
     """Execution-path switches threaded through every model."""
 
     use_kernels: bool = False     # hand-written Hopper kernels
+    # activation checkpointing in training: each layer (vlm, hybrid: each
+    # group) recomputes its forward in the backward pass, as the
+    # reference's jax.checkpoint does; inference (no_grad) ignores it
+    remat: bool = True
     # kv block of the plain blocked-attention path (long keys); the
     # attention kernel chooses its own tiles
     attn_block_k: int = 4096

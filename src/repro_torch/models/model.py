@@ -1,4 +1,5 @@
-"""Model assembly: init / prefill / decode_step / init_cache per family.
+"""Model assembly: init / train_forward / prefill / decode_step / init_cache
+per family.
 
 Ports `repro/models/model.py`.  Families: ``dense``, ``moe``, ``vlm`` and
 ``encdec`` (the transformer machinery) and ``ssm`` (RWKV6) and ``hybrid``
@@ -27,14 +28,25 @@ and returns the cache.
 Modality frontends are the reference's stubs: ``vlm`` takes precomputed
 patch embeddings (``extra["vision"] [B, vision_tokens, vision_dim]``),
 ``encdec`` precomputed frame embeddings (``extra["frames"] [B,
-enc_frames, d_model]``).  Training (``train_forward``) comes with the
-training slice (ROADMAP Queue 1, item 3).
+enc_frames, d_model]``).
+
+`train_forward` is the reference's loss (mean next-token NLL plus 0.01 of
+the moe load-balancing loss, the mean over layers) under autograd, on the
+plain paths as the reference trains (``use_pallas=False``): no kernel has
+a backward pass in either package.  With ``flags.remat`` each layer (vlm
+and hybrid: each group) runs under `torch.utils.checkpoint`, where the
+reference wraps it in ``jax.checkpoint``.  Training keeps float32 master
+weights, as the reference stores every parameter in f32 and casts it at
+use: `init_params(..., param_dtype=torch.float32)`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.common import resolve_device
 
@@ -56,8 +68,8 @@ from .layers import (
 from .moe import MoE, moe_ffn
 
 __all__ = ["LM", "DenseLM", "MoELM", "SSMLM", "EncDecLM", "VLMLM", "HybridLM",
-           "MODELS", "init_params", "prefill", "decode_step", "init_cache",
-           "RuntimeFlags"]
+           "MODELS", "init_params", "train_forward", "prefill", "decode_step",
+           "init_cache", "RuntimeFlags"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -139,18 +151,20 @@ class LM(nn.Module):
     """What every family holds: the embedding, the final norm and the head.
 
     Weights that the reference casts to the compute dtype at use (linear
-    ``w``, expert weights, ``conv_w``, the embedding) are stored in it;
-    gains, mixes, biases and the SSMs' decay parameters stay f32.
+    ``w``, expert weights, ``conv_w``, the embedding) are stored in
+    ``param_dtype``, by default the compute dtype; gains, mixes, biases and
+    the SSMs' decay parameters stay f32.  Both draw the same values from
+    ``gen``.
     """
 
     family = ""
 
-    def __init__(self, cfg, *, gen=None, device=None):
+    def __init__(self, cfg, *, gen=None, device=None, param_dtype=None):
         super().__init__()
         if cfg.family != self.family:
             raise ValueError(f"{type(self).__name__} holds the {self.family!r} "
                              f"family, {cfg.name} is {cfg.family!r}")
-        kw = dict(gen=gen, device=device, dtype=compute_dtype(cfg))
+        kw = dict(gen=gen, device=device, dtype=param_dtype or compute_dtype(cfg))
         self.emb = Embedding(cfg.vocab, cfg.d_model, **kw)
         self.ln_f = gain(cfg.d_model, device)
         if not cfg.tie_embeddings:
@@ -213,10 +227,12 @@ class HybridLM(LM):
 MODELS = {cls.family: cls for cls in (DenseLM, MoELM, SSMLM, EncDecLM, VLMLM, HybridLM)}
 
 
-def init_params(gen: torch.Generator, cfg, *, device=None) -> LM:
+def init_params(gen: torch.Generator, cfg, *, device=None, param_dtype=None) -> LM:
     """Random parameters of ``cfg``'s family drawn from ``gen``, a
-    generator on ``device`` (None: the CUDA device)."""
-    return MODELS[cfg.family](cfg, gen=gen, device=resolve_device(device))
+    generator on ``device`` (None: the CUDA device); weights in
+    ``param_dtype`` (None: the compute dtype; training passes f32)."""
+    return MODELS[cfg.family](cfg, gen=gen, device=resolve_device(device),
+                              param_dtype=param_dtype)
 
 
 # =====================================================================
@@ -229,6 +245,12 @@ def _dense_block(lp: DenseLayer, x, cfg, flags, kv_x=None, causal=True,
     x = x + h
     x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp)
     return x, kv
+
+
+def _moe_block(lp: MoELayer, x, cfg, flags):
+    h, kv = attention(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, flags)
+    x, aux = _moe_ffn(lp, x + h, cfg)
+    return x, kv, aux
 
 
 def _moe_ffn(lp: MoELayer, x, cfg, dropless=False):
@@ -268,64 +290,99 @@ def _kv(kvs, *lead):
             "v": _stack([kv["v"] for kv in kvs], *lead)}
 
 
-def _backbone(model: LM, x, cfg, flags, front: dict):
-    """Run the family backbone over a full sequence, collecting the decode
-    cache.  Returns ``(hidden, cache)``."""
+def _encdec_block(lp: DecoderLayer, x, enc, cfg, flags):
+    h, kv = attention(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, flags)
+    x = _cross_block(lp, x + h, enc, cfg, flags)
+    return x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp), kv
+
+
+def _vlm_group(grp: VLMGroup, x, vis, cfg, flags):
+    kvs = []
+    for lp in grp.self:
+        x, kv = _dense_block(lp, x, cfg, flags)
+        kvs.append(kv)
+    x, cross = _dense_block(grp.cross, x, cfg, flags, kv_x=vis, causal=False,
+                            use_rope=False)
+    return x, kvs, cross
+
+
+def _hybrid_group(grp: HybridGroup, shared: DenseLayer, x, cfg, flags):
+    states = []
+    for lp in grp.mamba:
+        h, st = m2.mamba2_block(lp.mamba, rms_norm(x, lp.ln, cfg.norm_eps), cfg, flags)
+        x = x + h
+        states.append(st)
+    x, kv = _dense_block(shared, x, cfg, flags)
+    return x, states, kv
+
+
+def _remat(fn, flags, *args):
+    """``fn(*args)``, recomputed in the backward pass when ``flags.remat``
+    and autograd records.  ``fn`` binds its layer (a `functools.partial`;
+    a closure over the loop variable would read the last layer when the
+    backward pass recomputes it)."""
+    if flags.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _backbone(model: LM, x, cfg, flags, front: dict, collect_cache: bool = True):
+    """Run the family backbone over a full sequence.  Returns ``(hidden,
+    cache, aux)``: the decode cache (empty unless ``collect_cache``) and the
+    moe load-balancing loss, the mean over layers (0 for other families)."""
     fam = cfg.family
-    if fam == "dense":
-        kvs = []
+    bind = functools.partial
+    aux = x.new_zeros((), dtype=torch.float32)
+    cache = {}
+    if fam in ("dense", "moe", "encdec"):
+        kvs, auxes = [], []
         for lp in model.layers:
-            x, kv = _dense_block(lp, x, cfg, flags)
+            if fam == "dense":
+                x, kv = _remat(bind(_dense_block, lp, cfg=cfg, flags=flags), flags, x)
+            elif fam == "moe":
+                x, kv, a = _remat(bind(_moe_block, lp, cfg=cfg, flags=flags), flags, x)
+                auxes.append(a)
+            else:
+                x, kv = _remat(bind(_encdec_block, lp, cfg=cfg, flags=flags), flags, x,
+                               front["_enc_out"])
             kvs.append(kv)
-        return x, {"kv": _kv(kvs, len(kvs))}
-    if fam == "moe":
-        kvs = []
-        for lp in model.layers:
-            h, kv = attention(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, flags)
-            x, _ = _moe_ffn(lp, x + h, cfg)
-            kvs.append(kv)
-        return x, {"kv": _kv(kvs, len(kvs))}
+        if collect_cache:
+            cache["kv"] = _kv(kvs, len(kvs))
+        if auxes:
+            aux = torch.stack(auxes).mean()
+        return x, cache, aux
     if fam == "vlm":
-        vis = front["_vis_embed"]
         kvs, cross = [], []
         for grp in model.groups:
-            for lp in grp.self:
-                x, kv = _dense_block(lp, x, cfg, flags)
-                kvs.append(kv)
-            x, kv = _dense_block(grp.cross, x, cfg, flags, kv_x=vis, causal=False,
-                                 use_rope=False)
-            cross.append(kv)
-        return x, {"kv": _kv(kvs, *_vlm_groups(cfg)), "cross_kv": _kv(cross, len(cross))}
-    if fam == "encdec":
-        enc = front["_enc_out"]
-        kvs = []
-        for lp in model.layers:
-            h, kv = attention(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, flags)
-            x = _cross_block(lp, x + h, enc, cfg, flags)
-            x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp)
-            kvs.append(kv)
-        return x, {"kv": _kv(kvs, len(kvs))}
+            x, gkv, ckv = _remat(bind(_vlm_group, grp, cfg=cfg, flags=flags), flags, x,
+                                 front["_vis_embed"])
+            kvs += gkv
+            cross.append(ckv)
+        if collect_cache:
+            cache = {"kv": _kv(kvs, *_vlm_groups(cfg)), "cross_kv": _kv(cross, len(cross))}
+        return x, cache, aux
     if fam == "ssm":
         states = []
         for lp in model.layers:
-            x, st = _rwkv_block(lp, x, cfg, flags)
+            x, st = _remat(bind(_rwkv_block, lp, cfg=cfg, flags=flags), flags, x)
             states.append(st)
-        return x, {"state": tuple(_stack([s[j] for s in states], len(states))
-                                  for j in range(3))}
+        if collect_cache:
+            cache["state"] = tuple(_stack([s[j] for s in states], len(states))
+                                   for j in range(3))
+        return x, cache, aux
     if fam == "hybrid":
         ng, per = _hybrid_groups(cfg)
-        conv, ssm, kvs = [], [], []
+        states, kvs = [], []
         for grp in model.groups:
-            for lp in grp.mamba:
-                h, (cst, sst) = m2.mamba2_block(
-                    lp.mamba, rms_norm(x, lp.ln, cfg.norm_eps), cfg, flags)
-                x = x + h
-                conv.append(cst)
-                ssm.append(sst)
-            x, kv = _dense_block(model.shared, x, cfg, flags)
+            x, gst, kv = _remat(bind(_hybrid_group, grp, model.shared, cfg=cfg,
+                                     flags=flags), flags, x)
+            states += gst
             kvs.append(kv)
-        return x, {"state": (_stack(conv, ng, per), _stack(ssm, ng, per)),
-                   "kv": _kv(kvs, ng)}
+        if collect_cache:
+            cache = {"state": (_stack([s[0] for s in states], ng, per),
+                               _stack([s[1] for s in states], ng, per)),
+                     "kv": _kv(kvs, ng)}
+        return x, cache, aux
     raise ValueError(fam)
 
 
@@ -359,6 +416,26 @@ def _run_frontends(model: LM, cfg, flags, extra: dict) -> dict:
 # =====================================================================
 # public entry points
 # =====================================================================
+def train_forward(model: LM, tokens, labels, cfg, flags: RuntimeFlags,
+                  extra: dict | None = None):
+    """The training loss.  tokens, labels: ``[B, S]`` int; ``extra`` as
+    `prefill`'s.  Returns ``(loss, metrics)``: ``loss = nll + 0.01 * aux``,
+    a 0-d f32 tensor that autograd records (for the parameters that require
+    a gradient), and the detached ``nll``, ``aux`` and ``ppl = exp(min(nll,
+    20))``."""
+    front = _run_frontends(model, cfg, flags, extra or {})
+    x = _embed(model, tokens, cfg)
+    x, _, aux = _backbone(model, x, cfg, flags, front, collect_cache=False)
+    logits = _unembed(model, x, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = (lse - gold).mean()
+    loss = nll + 0.01 * aux
+    nll = nll.detach()
+    return loss, {"nll": nll, "aux": aux.detach(),
+                  "ppl": torch.exp(nll.clamp(max=20.0))}
+
+
 @torch.no_grad()
 def prefill(model: LM, tokens, cfg, flags: RuntimeFlags, extra: dict | None = None,
             pad_to: int | None = None):
@@ -373,7 +450,7 @@ def prefill(model: LM, tokens, cfg, flags: RuntimeFlags, extra: dict | None = No
     seq = tokens.shape[1]
     front = _run_frontends(model, cfg, flags, extra or {})
     x = _embed(model, tokens, cfg)
-    x, cache = _backbone(model, x, cfg, flags, front)
+    x, cache, _ = _backbone(model, x, cfg, flags, front)
     logits = _unembed(model, x[:, -1:], cfg)
 
     if pad_to is not None and pad_to != seq and "kv" in cache:

@@ -30,7 +30,8 @@ its bidirectional encoder (1,500 x 1,500), in f32 and bf16; the exclusive
 scan at RWKV6's prefill shape (BH 256, L 1,000, K = V = 64); the column
 split over (cuda:0, cuda:0), bit for bit the unsharded solve; and each
 family's reduced prefill on the kernels against the plain path at 1e-4,
-with its launch counts.
+with its launch counts; one train step of reduced smollm and granite-moe
+(f32) on the card against the same step on the CPU (loss at 1e-5).
 """
 
 import numpy as np
@@ -687,3 +688,34 @@ def test_reduced_family_prefill_on_kernels_matches_plain(cuda, arch):
     # encdec's decode reruns cross-attention through the kernel, one query row
     assert flash_attention_cuda.launches - before == (
         cfg.n_layers if cfg.family == "encdec" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of a reduced f32 config on the card against the same
+    step on the CPU, from the same weights: loss within 1e-5 (relative),
+    grad norm and learning rate alike, and no kernel launch (training runs
+    the plain paths, as the reference's does)."""
+    import copy
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(arch).reduced()
+    cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, RuntimeFlags(), lr=3e-3, warmup=2, total=10)
+    before = (chunked_scan_cuda.launches, flash_attention_cuda.launches)
+    got = step(gpu, adamw_init(gpu), {k: v.to(cuda) for k, v in batch.items()})
+    assert (chunked_scan_cuda.launches, flash_attention_cuda.launches) == before
+    want = step(cpu, adamw_init(cpu), batch)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(got["grad_norm"]), float(want["grad_norm"]),
+                               rtol=1e-4)
+    assert got["lr"] == want["lr"]
+    if cfg.family == "moe":
+        assert float(got["aux"]) > 0

@@ -34,6 +34,10 @@ def test_import_with_jax_blocked():
         "from repro_torch.kernels.flash_attention import kernel, ops, ref\n"
         "import repro_torch.models, repro_torch.models.convert\n"
         "import repro_torch.launch.serve, repro_torch.configs\n"
+        "import repro_torch.launch.train, repro_torch.launch.steps\n"
+        "from repro_torch import optim, data, distributed, checkpoint\n"
+        "from repro_torch.optim import adamw, clip, schedules\n"
+        "from repro_torch.distributed import elastic, fault_tolerance\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -67,7 +71,9 @@ def test_port_files_found():
             "mamba2.py", "model.py", "convert.py", "serve.py", "serialize.py",
             "robust.py", "transform.py", "fine.py", "dagcirc.py", "upper.py",
             "contracts.py", "hazards.py", "resilience.py",
-            "torch_quickstart.py"} <= names
+            "torch_quickstart.py", "adamw.py", "clip.py", "schedules.py",
+            "pipeline.py", "elastic.py", "fault_tolerance.py", "checkpoint.py",
+            "steps.py", "train.py"} <= names
 
 
 def test_default_device_is_cuda_and_raises_without_it():
@@ -91,6 +97,11 @@ def test_default_device_is_cuda_and_raises_without_it():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.setup(serve.parse_args(["--reduced"]))
+
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1"])
 
 
 def test_reused_library_keeps_its_compiler_output(tmp_path, monkeypatch):
