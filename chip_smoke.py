@@ -170,9 +170,37 @@ either package has a backward pass:
      layers (groups) that keep each structure, bf16 over f32 master
      weights: finite loss, finite grad norm > 0, no kernel launch.
 
+Steps 12-26 run on plain tensors: on a world of one the launchers serve
+and train without a mesh (mesh.launch_mesh).  Then the device mesh
+(distributed/sharding.py, launch/mesh.py), on the card's world of one:
+make_local_mesh() starts a one-rank NCCL process group in this process and
+a (1, 1) ("data", "model") mesh, which steps 27-28 hand to the launchers;
+the weights are DTensors placed by the sharding rules and the kernels run
+on each rank's local rows:
+
+  27. launch/serve.py on the mesh for zamba2-2.7b and the five families of
+     steps 20-24 at full width and depth, as in steps 12-14 and 20-24 (8
+     requests, 1000 prompt tokens, 448 for whisper-base, 32 decode steps,
+     the same seeded weights and inputs): the prefill's last logits within
+     those steps' bf16 limit (twice the rounding floor) of theirs, every
+     greedy token equal, the same launches per phase, and prefill and
+     decode tokens/s beside theirs;
+  28. launch/train.py on the mesh for smollm-360m with step 25's arguments,
+     MESH_TRAIN_STEPS steps: the losses equal step 25's first ones to
+     MESH_LOSS_REL relative; the checkpoint (host_0.npz, meta.json,
+     COMMITTED; a world of one takes the layout's one-host branch) is
+     restored by a restart that continues on step 25's losses;
+  29. the dry run, host only: launch/hlo_analysis.py's counts checked on a
+     fake world of 4, then launch/dryrun.py for granite-8b x train_4k x pod
+     on a fake process group of 256 ranks (meta tensors, its own process):
+     per-device argument bytes against the card's memory (they must fit),
+     per-device dot_flops, collective bytes and the roofline's terms at the
+     H100's datasheet peaks.
+
 Launch counters are set to 0 right before each main-path run (and each
-path of steps 7-11 and 15-26) and read right after it.  It prints one
-{"kernels": [...], "paths": [...], "training": [...]} line and, last,
+path of steps 7-11 and 15-28) and read right after it.  It prints one
+{"kernels": [...], "paths": [...], "training": [...], "mesh": [...]} line
+and, last,
 {"ok": true, "device": {...}}; any failed check raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing a result.
@@ -483,12 +511,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     training, train_launches = train_phase()
     model_launches.update(train_launches)
+    mesh_records, mesh_launches = mesh_phase(smi)
+    model_launches.update(mesh_launches)
     for e in entries:
         if e["name"] in wrappers:
             e["launches_by_path"] = {path: n[e["name"]] for path, n in launches_by_path.items()}
         else:
             e["launches_by_path"] = {path: n[e["name"]] for path, n in model_launches.items()}
-    print(json.dumps({"kernels": entries, "paths": paths, "training": training}))
+    print(json.dumps({"kernels": entries, "paths": paths, "training": training,
+                      "mesh": mesh_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -803,6 +834,8 @@ def serve_phase():
     runs = [result] + [serve.run(srv) for _ in range(SERVE_RUNS - 1)]
     rates = {key: [r[key] for r in runs]
              for key in ("prefill_tokens_per_s", "decode_tokens_per_s")}
+    UNSHARDED[cfg.name] = {"tokens": result["tokens"], "logits": logits_k[:, -1].cpu(),
+                           "floor": floor, "rates": rates}
 
     # -- 14. each kernel vs its plain twin on the first layer's inputs; times -
     entries = []
@@ -1409,6 +1442,8 @@ FAMILIES = (  # arch, prompt tokens, (scan, attention) launches per prefill and 
     ("llama-3.2-vision-11b", 1000, (0, 40), (0, 0)),
 )
 FAMILY_REQUESTS, FAMILY_DECODE = 8, 32
+# what steps 12-14, 20-24 and 25 served and trained on no mesh, for steps 27-28
+UNSHARDED: dict = {}
 
 
 def _seeded_extra(cfg, requests):
@@ -1581,7 +1616,8 @@ def family_phase(arch, prompt, want_prefill, want_decode):
         w.launches = 0
     result = serve.run(srv)
     launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"{arch} serve: {result}", flush=True)
+    print(f"{arch} serve: { {k: v for k, v in result.items() if k != 'tokens'} }",
+          flush=True)
     pre = dict(zip(wrappers, want_prefill))
     dec = {k: n * FAMILY_DECODE for k, n in zip(wrappers, want_decode)}
     assert result["launches"] == {"prefill": pre, "decode": dec}, (arch, result["launches"])
@@ -1595,6 +1631,8 @@ def family_phase(arch, prompt, want_prefill, want_decode):
           f"{rates['decode_tokens_per_s']}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     tokens, kernel_flags = srv.tokens, srv.flags
+    UNSHARDED[arch] = {"tokens": result["tokens"], "logits": logits_k[:, -1].cpu(),
+                       "floor": floor, "rates": rates}
     del srv, logits_k
     torch.cuda.empty_cache()
 
@@ -1761,7 +1799,7 @@ def _train_restart(ckpt_dir):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     memo = _memorize(TRAIN_ARGV + ["--steps", str(TRAIN_STEPS)])
     return {"path": "smollm-360m train", "batch": batch, "seq": seq, "memorize": memo,
-            "steps": TRAIN_STEPS, "loss_first": r1["first_loss"],
+            "steps": TRAIN_STEPS, "loss_first": r1["first_loss"], "losses": r1["losses"],
             "loss_last": r1["last_loss"], "step_ms_median": step_ms,
             "step_ms": r1["step_ms"], "tokens_per_s": batch * seq / step_ms * 1e3,
             "peak_gib": peak, "checkpoint_gib": ckpt_gib, "launches": launches,
@@ -1910,12 +1948,232 @@ def train_phase():
     import torch
 
     records = [_train_restart(os.path.join(ROOT, "build", "train_ckpt"))]
+    UNSHARDED["train_losses"] = records[0]["losses"]
+    UNSHARDED["train_step_ms"] = records[0]["step_ms"]
     records.append(_grad_check())
     for arch, cut in FAMILY_TRAIN:
         t0 = time.perf_counter()
         records.append(_family_train_step(arch, cut))
         torch.cuda.empty_cache()
         print(f"step 26 ({arch}) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return records, {r["path"]: r["launches"] for r in records if "launches" in r}
+
+
+# -- steps 27-29: the device mesh -------------------------------------------------
+# Zamba2 (steps 12-14) and the five families of steps 20-24
+MESH_FAMILIES = (("zamba2-2.7b", 1000, (54, 9), (0, 0)),) + FAMILIES
+MESH_TRAIN_STEPS, MESH_RESTART_STEPS, MESH_LOSS_REL = 5, 7, 1e-5
+DRYRUN_CELL = ("granite-8b", "train_4k", "pod")
+DRYRUN_TIMEOUT_S = 300
+# launch/hlo_analysis.py on a fake world of 4: a replicated product counts its
+# full 2*m*k*n per device, a column-sharded one a quarter, a row-sharded one a
+# quarter plus one all-reduce of its [m, n] f32 result
+COUNT_CHECK = """
+import sys, torch
+sys.path.insert(0, "src")
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.launch import dryrun, hlo_analysis
+from torch.distributed.device_mesh import init_device_mesh
+dryrun.fake_world(4)
+mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+m, k, n = 64, 32, 48
+put = lambda shape, p: distribute_tensor(torch.empty(shape, device="meta"), mesh,
+                                         [Replicate(), p], src_data_rank=None)
+x = put((m, k), Replicate())
+count = lambda w, red=False: hlo_analysis.analyze_step(
+    lambda: (x @ w).redistribute(mesh, [Replicate(), Replicate()]) if red else x @ w)
+rep, col, row = count(put((k, n), Replicate())), count(put((k, n), Shard(1))), \
+    count(put((k, n), Shard(0)), red=True)
+assert rep["dot_flops"] == 2 * m * k * n, rep
+assert col["dot_flops"] == 2 * m * k * n / 4 and col.collective_bytes == 0, col
+assert row["dot_flops"] == 2 * m * k * n / 4, row
+assert row["coll/all-reduce"] == m * n * 4, row
+print("count check", rep["dot_flops"], col["dot_flops"], row["dot_flops"],
+      row["coll/all-reduce"])
+"""
+
+
+def _mesh_serve(mesh, arch, prompt, want_prefill, want_decode, smi):
+    """Step 27 for one model: launch/serve.py on ``mesh`` (make_local_mesh():
+    the card's world of one, mesh (1, 1), NCCL) against steps 12-14 or
+    20-24 on no mesh: the same greedy tokens, the prefill's last logits
+    within those steps' bf16 limit (twice the rounding floor), the same
+    launches per phase."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import full_tensor
+    from repro_torch.launch import serve
+    from repro_torch.models import prefill
+
+    want = UNSHARDED[arch]
+    args = serve.parse_args(["--arch", arch, "--requests", str(FAMILY_REQUESTS),
+                             "--prefill-len", str(prompt), "--decode-steps",
+                             str(FAMILY_DECODE)])
+    cfg = serve.get_config(arch)
+    srv = serve.setup(args, extra=_seeded_extra(cfg, FAMILY_REQUESTS), mesh=mesh)
+    assert all(isinstance(p, DTensor) for p in srv.model.parameters())
+    logits, _ = prefill(srv.model, srv.tokens, cfg, srv.flags, srv.extra,
+                        pad_to=srv.max_seq)
+    assert isinstance(logits, DTensor)
+    err = _rel_l2(full_tensor(logits)[:, -1].cpu(), want["logits"])
+    print(f"step 27 {arch} on the mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"(NCCL, world of one): prefill's last logits vs no mesh, relative "
+          f"L2 {err:.3e} (limit 2 x floor {2 * want['floor']:.3e})", flush=True)
+    assert err <= 2 * want["floor"], (arch, err, want["floor"])
+    del logits
+    wrappers = {k: w for k, w in _all_wrappers().items() if k in ("chunked_scan_cuda",
+                                                                  "flash_attention_cuda")}
+    for w in wrappers.values():
+        w.launches = 0
+    result = serve.run(srv)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    pre = dict(zip(wrappers, want_prefill))
+    dec = {k: n * FAMILY_DECODE for k, n in zip(wrappers, want_decode)}
+    assert result["launches"] == {"prefill": pre, "decode": dec}, (arch, result["launches"])
+    assert launches == {k: pre[k] + dec[k] for k in wrappers}, (arch, launches)
+    assert result["tokens"] == want["tokens"], f"{arch}: greedy tokens differ on the mesh"
+    runs = [result] + [serve.run(srv) for _ in range(SERVE_RUNS - 1)]
+    rates = {key: [r[key] for r in runs]
+             for key in ("prefill_tokens_per_s", "decode_tokens_per_s")}
+    print(f"step 27 {arch} serve on the mesh: {FAMILY_REQUESTS} x {FAMILY_DECODE} greedy "
+          f"tokens equal those on no mesh; launches {result['launches']}; {SERVE_RUNS} runs "
+          f"({smi}): prefill tokens/s {rates['prefill_tokens_per_s']} (no mesh "
+          f"{want['rates']['prefill_tokens_per_s']}), decode tokens/s "
+          f"{rates['decode_tokens_per_s']} (no mesh {want['rates']['decode_tokens_per_s']})",
+          flush=True)
+    del srv
+    torch.cuda.empty_cache()
+    return {"path": f"{arch} serve on the mesh", "mesh": [1, 1], "rel_l2_vs_no_mesh": err,
+            "launches": launches, "prefill_tokens_per_s_runs": rates["prefill_tokens_per_s"],
+            "decode_tokens_per_s_runs": rates["decode_tokens_per_s"],
+            "no_mesh_rates": want["rates"]}
+
+
+def _mesh_train(mesh, ckpt_dir, smi):
+    """Step 28: launch/train.py on ``mesh`` (smollm-360m at full
+    width and depth, step 25's arguments) for MESH_TRAIN_STEPS steps: the
+    losses equal step 25's; the checkpoint's layout (host_0.npz, meta.json,
+    COMMITTED), then a restart restores it and continues on step 25's
+    trajectory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = TRAIN_ARGV + ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(MESH_TRAIN_STEPS)]
+    want = UNSHARDED["train_losses"]
+    wrappers = _all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    r1 = train.main(argv + ["--steps", str(MESH_TRAIN_STEPS)], mesh=mesh)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(r1["losses"], want)]
+    step_ms = float(np.median(r1["step_ms"][1:]))
+    print(f"step 28 smollm-360m training on the mesh (1, 1) ({smi}): losses "
+          + " ".join(f"{x:.5f}" for x in r1["losses"]) + f"; step 25 (no mesh) "
+          + " ".join(f"{x:.5f}" for x in want[:MESH_TRAIN_STEPS])
+          + f"; worst relative difference {max(rel):.2e} (limit {MESH_LOSS_REL}); median "
+          f"step {step_ms:.2f} ms after the first (step 25: "
+          f"{float(np.median(UNSHARDED['train_step_ms'][TRAIN_WARM:])):.2f} ms), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    assert r1["steps"] == MESH_TRAIN_STEPS and max(rel) <= MESH_LOSS_REL, (rel, r1)
+    assert not any(launches.values()), launches
+    step_dir = os.path.join(ckpt_dir, f"step_{MESH_TRAIN_STEPS:08d}")
+    files = sorted(os.listdir(step_dir))
+    assert files == ["COMMITTED", "host_0.npz", "meta.json"], files
+    r2 = train.main(argv + ["--steps", str(MESH_RESTART_STEPS)], mesh=mesh)
+    rel2 = [abs(a - b) / abs(b) for a, b in
+            zip(r2["losses"], want[MESH_TRAIN_STEPS:MESH_RESTART_STEPS])]
+    print(f"step 28 checkpoint {files} at step {MESH_TRAIN_STEPS}; restart with --steps "
+          f"{MESH_RESTART_STEPS} took {r2['steps']} steps, losses "
+          + " ".join(f"{x:.5f}" for x in r2["losses"])
+          + f", worst relative difference to step 25's {max(rel2):.2e}", flush=True)
+    assert r2["steps"] == MESH_RESTART_STEPS - MESH_TRAIN_STEPS, r2
+    assert max(rel2) <= MESH_LOSS_REL, rel2
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"path": "smollm-360m train on the mesh", "losses": r1["losses"],
+            "loss_rel_max": max(rel), "restart_loss_rel_max": max(rel2),
+            "step_ms": r1["step_ms"], "checkpoint_files": files, "launches": launches}
+
+
+def _dryrun(smi):
+    """Step 29 (host only): launch/dryrun.py for DRYRUN_CELL on a fake
+    process group of 256 ranks, in a process of its own; the per-device
+    arguments must fit the card's memory."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import roofline
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    check = subprocess.run([sys.executable, "-c", COUNT_CHECK], capture_output=True,
+                           text=True, cwd=ROOT, env=env, timeout=DRYRUN_TIMEOUT_S)
+    assert check.returncode == 0, check.stderr[-3000:]
+    print(f"step 29 {check.stdout.strip()}", flush=True)
+    arch, shape, mesh = DRYRUN_CELL
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shape, "--mesh", mesh, "--out", out_dir],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=DRYRUN_TIMEOUT_S)
+    cell_s = time.perf_counter() - t0
+    assert run.returncode == 0, run.stderr[-3000:]
+    with open(os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")) as f:
+        rec = json.load(f)
+    row = roofline.analyze_record(rec)
+    mem = rec["memory_analysis"]
+    card = torch.cuda.get_device_properties(0).total_memory
+    gib = lambda b: b / 2**30
+    print(f"step 29 dry run {arch} x {shape} x {mesh} ({rec['devices']} fake ranks, meta "
+          f"tensors, {cell_s:.1f} s in all: arguments built in {rec['lower_s']} s, step "
+          f"traced in {rec['compile_s']} s): per-device arguments "
+          f"{gib(mem['argument_size_in_bytes']):.3f} GiB, outputs "
+          f"{gib(mem['output_size_in_bytes']):.3f} GiB, against the card's "
+          f"{gib(card):.2f} GiB ({smi}); largest single collective result "
+          f"{gib(rec['hlo']['largest_collective_bytes']):.3f} GiB a device (a temporary the "
+          f"arguments leave out); per-device dot_flops {rec['hlo']['dot_flops']:.4e}, "
+          f"hbm_bytes {rec['hlo']['hbm_bytes']:.4e}, collective bytes "
+          f"{rec['collective_bytes']:.4e} "
+          f"({ {k: v for k, v in rec['hlo'].items() if k.startswith('coll/') and v} }); "
+          f"roofline (H100 datasheet peaks): compute {row['compute_s']:.4e} s, memory "
+          f"{row['memory_s']:.4e} s, collective {row['collective_s']:.4e} s, dominant "
+          f"{row['dominant']}, useful/counted {row['useful_ratio']:.3f}, roofline fraction "
+          f"{row['roofline_fraction']:.4f}", flush=True)
+    assert mem["argument_size_in_bytes"] < card, (mem, card)
+    assert rec["hlo"]["dot_flops"] > 0 and rec["devices"] == 256
+    return {"path": f"dry run {arch} x {shape} x {mesh}", "record": rec, "roofline": row,
+            "cell_s": cell_s, "card_bytes": card}
+
+
+def mesh_phase(smi):
+    """Steps 27-29.  Returns the records and {path: {kernel: launches}}."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    records = []
+    try:
+        mesh = make_local_mesh()
+        assert tuple(mesh.shape) == (1, 1) and dist.get_backend() == "nccl", mesh
+        for step_arch in MESH_FAMILIES:
+            t0 = time.perf_counter()
+            records.append(_mesh_serve(mesh, *step_arch, smi))
+            print(f"step 27 ({step_arch[0]}) took {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        t0 = time.perf_counter()
+        records.append(_mesh_train(mesh, os.path.join(ROOT, "build", "mesh_ckpt"), smi))
+        print(f"step 28 took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    records.append(_dryrun(smi))
     return records, {r["path"]: r["launches"] for r in records if "launches" in r}
 
 

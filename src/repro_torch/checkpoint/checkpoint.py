@@ -3,10 +3,18 @@
 Ports `repro/checkpoint/checkpoint.py` with its layout, so the files of the
 two packages are interchangeable:
 
-    <dir>/step_<n>/host_0.npz  + meta.json  + <dir>/step_<n>/COMMITTED
+    <dir>/step_<n>/host_<h>.npz  + meta.json  + <dir>/step_<n>/COMMITTED
 
-  * a step directory is valid iff the COMMITTED marker exists (atomic rename
-    of a tmp dir -> crash-safe partial writes are ignored on restore);
+  * a step directory is valid iff the COMMITTED marker exists (one host:
+    atomic rename of a tmp dir; several: host 0 writes it after a barrier
+    that every host reaches once its file is written), so crash-safe
+    partial writes are ignored on restore;
+  * a host is a rank of the process group (``host_id`` = rank,
+    ``num_hosts`` = world size).  Each host writes the whole tree it is
+    given: a DTensor leaf is gathered to its global value first
+    (`convert.train_state_tree`), as the reference's ``np.asarray`` gathers
+    a sharded array; restore reads the host's own file, and
+    `convert.load_train_state` keeps each rank's shard;
   * `CheckpointManager` snapshots the tree to the host, saves it on a
     background thread (training never blocks on I/O), keeps the newest
     `keep` checkpoints, and `latest_step` drives restart-after-failure.
@@ -31,11 +39,14 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["save_checkpoint", "latest_step", "restore_checkpoint",
            "CheckpointManager"]
 
-_HOST_FILE = "host_0.npz"   # the reference's file for host 0 of 1
+
+def _host_file(host_id: int) -> str:
+    return f"host_{host_id}.npz"
 
 
 def _items(node):
@@ -89,26 +100,39 @@ def save_checkpoint(
     step: int,
     tree,
     meta: dict | None = None,
+    host_id: int = 0,
+    num_hosts: int = 1,
 ) -> str:
-    """Write `tree` for `step`, atomically.
+    """Write this host's `tree` for `step`, atomically.
 
-    One process writes the whole tree as ``host_0.npz``, the file name of
-    the reference's single-host layout.
+    One host writes ``host_0.npz`` into a tmp dir renamed into place.  With
+    several, every host writes ``host_<host_id>.npz`` into the step dir,
+    host 0 the meta, and host 0 the COMMITTED marker after a barrier of the
+    default process group (every host must call this).
     """
     flat = {key: _to_numpy(leaf) for key, leaf in _flatten(tree)}
     final = os.path.join(directory, f"step_{step:08d}")
-    tmp = final + ".tmp0"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    np.savez(os.path.join(tmp, _HOST_FILE), **flat)
-    if meta is not None:
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump({"step": step, **meta}, f)
-    shutil.rmtree(final, ignore_errors=True)
-    os.replace(tmp, final)  # atomic publish
-    # the commit marker comes last, after the atomic rename above
-    with open(os.path.join(final, "COMMITTED"), "w") as f:
-        f.write(str(step))
+    if num_hosts == 1:
+        tmp = final + f".tmp{host_id}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, _host_file(host_id)), **flat)
+        if meta is not None:
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump({"step": step, **meta}, f)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)  # atomic publish
+    else:
+        os.makedirs(final, exist_ok=True)
+        np.savez(os.path.join(final, _host_file(host_id)), **flat)
+        if meta is not None and host_id == 0:
+            with open(os.path.join(final, "meta.json"), "w") as f:
+                json.dump({"step": step, **meta}, f)
+        dist.barrier()   # every host's file is written
+    # the commit marker comes last, written by host 0
+    if host_id == 0:
+        with open(os.path.join(final, "COMMITTED"), "w") as f:
+            f.write(str(step))
     return final
 
 
@@ -129,6 +153,7 @@ def restore_checkpoint(
     directory: str,
     example_tree,
     step: int | None = None,
+    host_id: int = 0,
 ):
     """Restore into the structure of `example_tree`; returns (tree, step).
 
@@ -140,7 +165,7 @@ def restore_checkpoint(
     step = step if step is not None else latest_step(directory)
     if step is None:
         return example_tree, None
-    path = os.path.join(directory, f"step_{step:08d}", _HOST_FILE)
+    path = os.path.join(directory, f"step_{step:08d}", _host_file(host_id))
     data = np.load(path)
 
     def load(key, leaf):
@@ -159,11 +184,17 @@ def restore_checkpoint(
 
 
 class CheckpointManager:
-    """Async save + retention, non-blocking for the train loop."""
+    """Async save + retention, non-blocking for the train loop.  With
+    several hosts a save runs in the caller's thread: its barrier is a
+    collective of the process group, which the train loop's thread also
+    uses."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, host_id: int = 0,
+                 num_hosts: int = 1):
         self.directory = directory
         self.keep = keep
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
         os.makedirs(directory, exist_ok=True)
@@ -178,11 +209,17 @@ class CheckpointManager:
 
         def work():
             try:
-                save_checkpoint(self.directory, step, host_tree, meta)
-                self._gc()
+                save_checkpoint(self.directory, step, host_tree, meta, self.host_id,
+                                self.num_hosts)
+                if self.host_id == 0:
+                    self._gc()
             except Exception as e:  # raised again by wait(), in the caller's thread
                 self._error = e
 
+        if self.num_hosts > 1:
+            work()
+            self.wait()
+            return
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 
@@ -199,7 +236,7 @@ class CheckpointManager:
         return latest_step(self.directory)
 
     def restore(self, example_tree, step: int | None = None):
-        return restore_checkpoint(self.directory, example_tree, step)
+        return restore_checkpoint(self.directory, example_tree, step, self.host_id)
 
     def _gc(self) -> None:
         steps = sorted(

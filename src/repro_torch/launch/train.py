@@ -7,8 +7,9 @@ tolerance.
         --steps 6 --batch 2 --seq 32
 
 Ports `repro/launch/train.py`: the same flags and defaults (plus
-``--device``), the same loop and the same returned dict, which also lists
-each step's milliseconds (``step_ms``, the step and reading its loss).
+``--device``), the same loop and the same returned dict,
+which also lists each step's loss (``losses``) and milliseconds
+(``step_ms``, the step and reading its loss).
 It runs on the CUDA device unless ``--device`` names another.  Weights
 are random, drawn from a seeded `torch.Generator`, and kept in float32
 (master weights, as the reference keeps them; the compute dtype is the
@@ -30,8 +31,17 @@ Fault-tolerance wiring, as in the reference:
 train step, the step-indexed batches) from the flags, for `main` and for
 whatever else drives the same step (``launch/profile.py --train``).
 
-The model runs on one device: ``--production-mesh`` and a ``--model-axis``
-other than 1 raise `NotImplementedError` (ROADMAP Queue 1, item 4).
+As the reference, `main` trains through a device mesh, as
+`mesh.launch_mesh` chooses it: `mesh.make_production_mesh()` with
+``--production-mesh`` (a process group of 256 ranks), else
+`mesh.make_local_mesh(--model-axis)` over the ranks of the process group
+(under ``torchrun``: NCCL on the cards, gloo with ``--device cpu``).  The
+weights and AdamW's moments are DTensors placed by
+`sharding.param_placements`, the batches by `sharding.batch_placements`.
+Checkpoints take the reference's multi-host layout with one host per rank.
+A world of one trains plain tensors, since every dim of its mesh has size
+1; `main` and `setup` take a caller's mesh (``mesh=``), a (1, 1) mesh
+included.
 """
 
 from __future__ import annotations
@@ -41,12 +51,20 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.distributed import HeartbeatMonitor, StragglerPolicy, plan_remesh
+from repro_torch.distributed.sharding import (
+    batch_placements,
+    distribute_params,
+    dp_axes,
+    place,
+)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import launch_mesh
 from repro_torch.launch.serve import stub_extra
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import RuntimeFlags, init_params
@@ -89,46 +107,67 @@ class Trainer:
     train_step: object          # train_step(model, opt_state, batch) -> metrics
     dataset: SyntheticLMDataset
     extra: dict                 # the vlm / encdec frontends' stub inputs
+    mesh: object = None         # DeviceMesh | None
 
     def batch(self, step: int) -> dict:
-        """Global batch ``step`` of the dataset on the device, with ``extra``."""
+        """Global batch ``step`` of the dataset on the device, with ``extra``;
+        on a mesh each tensor placed by `sharding.batch_placements`."""
         batch = {k: torch.from_numpy(v).to(self.device).long()
                  for k, v in self.dataset.batch(step).items()}
         batch.update(self.extra)
+        if self.mesh is not None:
+            batch = {k: place(v, self.mesh, batch_placements(self.mesh, v.shape[0], v.ndim))
+                     for k, v in batch.items()}
         return batch
 
 
-def setup(args: argparse.Namespace, cfg=None) -> Trainer:
-    """Config (``cfg``, default the flags'), seeded f32 master weights,
-    AdamW state, the train step (the reference's flags, lr schedule over
-    ``--steps``) and the data."""
-    if args.production_mesh or args.model_axis != 1:
-        raise NotImplementedError(
-            "training on a device mesh (--production-mesh, --model-axis > 1) waits "
-            "for the multi-device slice (ROADMAP Queue 1, item 4)")
+def setup(args: argparse.Namespace, cfg=None, mesh=None) -> Trainer:
+    """Config (``cfg``, default the flags'), seeded f32 master weights (on
+    ``mesh``, a `DeviceMesh`, placed by `sharding.param_placements`; None
+    for plain tensors), AdamW state, the train step (the reference's flags,
+    lr schedule over ``--steps``) and the data."""
+    if mesh is None and (args.production_mesh or args.model_axis != 1):
+        raise ValueError("--production-mesh and --model-axis need a mesh: pass "
+                         "the one `mesh.launch_mesh` gives for these flags")
     if cfg is None:
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
     dev = resolve_device(args.device)
-    flags = RuntimeFlags(use_kernels=False, remat=True)
+    flags = RuntimeFlags(use_kernels=False, remat=True, mesh=mesh,
+                         dp=dp_axes(mesh) if mesh is not None else ("data",))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = init_params(gen, cfg, device=dev, param_dtype=torch.float32)
+    if mesh is not None:
+        distribute_params(model, mesh)
     return Trainer(
         cfg=cfg, device=dev, model=model, opt_state=adamw_init(model),
         train_step=make_train_step(cfg, flags, lr=args.lr, warmup=WARMUP,
                                    total=args.steps),
         dataset=SyntheticLMDataset(cfg.vocab, args.seq, args.batch),
-        extra=stub_extra(cfg, args.batch, dev))
+        extra=stub_extra(cfg, args.batch, dev), mesh=mesh)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, mesh=None) -> dict:
+    """Train with the flags ``argv`` on ``mesh`` (a `DeviceMesh` whose
+    process group the caller owns), or by default on the mesh
+    `mesh.launch_mesh` gives for the flags."""
     args = parse_args(argv)
-    tr = setup(args)
+    if mesh is not None:
+        return _train(args, mesh)
+    with launch_mesh(args.model_axis, args.device, production=args.production_mesh) as m:
+        return _train(args, m)
+
+
+def _train(args: argparse.Namespace, mesh) -> dict:
+    tr = setup(args, mesh=mesh)
     model, opt_state, dev = tr.model, tr.opt_state, tr.device
     start_step = 0
 
-    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    rank, world = ((dist.get_rank(), dist.get_world_size()) if tr.mesh is not None
+                   else (0, 1))
+    ckpt = (CheckpointManager(args.ckpt_dir, host_id=rank, num_hosts=world)
+            if args.ckpt_dir else None)
     if ckpt is not None:
         (restored, step) = ckpt.restore(train_state_tree(model, opt_state, "meta"))
         if step is not None:
@@ -138,7 +177,10 @@ def main(argv=None) -> dict:
 
     monitor = HeartbeatMonitor(hosts=[0], timeout_s=300.0)
     stragglers = StragglerPolicy()
-    devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if tr.mesh is not None:
+        devices = world
+    else:
+        devices = torch.cuda.device_count() if dev.type == "cuda" else 1
 
     losses, step_ms = [], []
     step = start_step
@@ -184,7 +226,7 @@ def main(argv=None) -> dict:
     if ckpt is not None:
         ckpt.wait()
     result = {"first_loss": losses[0], "last_loss": losses[-1],
-              "steps": len(losses), "step_ms": step_ms}
+              "steps": len(losses), "step_ms": step_ms, "losses": losses}
     print(result)
     return result
 

@@ -26,12 +26,15 @@ import re
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import full_tensor, place
 from repro_torch.kernels.common import resolve_device
 
 from .model import MODELS, LM
 
 __all__ = ["params_from_jax", "named_from_tree", "tree_from_named",
-           "train_state_tree", "load_train_state"]
+           "train_state_tree", "load_train_state", "reference_name"]
 
 # stacked prefix of the reference's names -> the port's name pattern, one
 # ``{}`` per stacked axis
@@ -45,6 +48,17 @@ _STACKED = {
 # the port's names back to the reference's: (regex, stacked prefix)
 _UNSTACK = [(re.compile("^" + re.escape(pattern).replace(r"\{\}", r"(\d+)") + "(.+)$"),
              prefix) for prefix, pattern in _STACKED.items()]
+
+
+def reference_name(name: str) -> tuple[str, int]:
+    """A port parameter name -> ``(the reference's stacked name, the number
+    of stacked leading axes it drops)``: ``layers.3.attn.wq.w`` ->
+    ``("layers.attn.wq.w", 1)``."""
+    for rx, prefix in _UNSTACK:
+        m = rx.match(name)
+        if m:
+            return prefix + m.groups()[-1], len(m.groups()) - 1
+    return name, 0
 
 
 def _flatten(node, path=()):
@@ -75,9 +89,11 @@ def tree_from_named(named: dict, device=None) -> dict:
     """``{port name: tensor}`` -> the reference's nested tree, per-layer
     tensors stacked under the scan's leading axes.  Every leaf is a new
     tensor on ``device`` (None: each tensor's own), detached and sharing no
-    memory with ``named``, so the tree is a snapshot."""
+    memory with ``named``, so the tree is a snapshot.  A DTensor leaf is
+    gathered to its global value (a collective: every rank calls this)."""
     flat, stacked = {}, {}
     for name, t in named.items():
+        t = _gathered(t, device)
         for rx, prefix in _UNSTACK:
             m = rx.match(name)
             if m:
@@ -104,6 +120,14 @@ def tree_from_named(named: dict, device=None) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = flat[name]
     return tree
+
+
+def _gathered(t, device):
+    """A DTensor's global value (its shape alone for ``device="meta"``);
+    any other tensor as it is."""
+    if isinstance(t, DTensor) and device is not None and torch.device(device).type == "meta":
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+    return full_tensor(t)
 
 
 def params_from_jax(tree, cfg, *, device=None) -> LM:
@@ -147,7 +171,8 @@ def train_state_tree(model: LM, opt_state: dict, device="cpu") -> dict:
 @torch.no_grad()
 def load_train_state(model: LM, opt_state: dict, tree: dict) -> None:
     """Copy a `train_state_tree` (restored from a checkpoint) into ``model``
-    and ``opt_state`` in place."""
+    and ``opt_state`` in place; a DTensor keeps its own shard of the
+    restored global value."""
     targets = [(dict(model.named_parameters()), tree["params"]),
                (opt_state["m"], tree["opt"]["m"]), (opt_state["v"], tree["opt"]["v"])]
     for dest, src in targets:
@@ -159,5 +184,10 @@ def load_train_state(model: LM, opt_state: dict, tree: dict) -> None:
         for name, t in named.items():
             if not isinstance(t, torch.Tensor):
                 t = torch.from_numpy(np.array(t))
-            dest[name].copy_(t)
+            d = dest[name]
+            if isinstance(d, DTensor):   # this rank's shard of the global value
+                d = d.to_local()
+                t = place(t.to(d.device), dest[name].device_mesh,
+                          dest[name].placements).to_local()
+            d.copy_(t)
     opt_state["step"] = int(tree["opt"]["step"])

@@ -13,8 +13,15 @@ Conventions kept from the reference, so that weights carry across
 
 ``RuntimeFlags.use_kernels`` takes the place of the reference's
 ``use_pallas``/``interpret`` pair: True runs the hand-written kernels
-(their plain twins for CPU tensors).  The reference's mesh arguments and
-``shard()`` drop out: a model runs on one device.
+(their plain twins for CPU tensors).
+
+On a device mesh (``RuntimeFlags.mesh``, a `DeviceMesh`) parameters and
+activations are DTensors (`distributed.sharding.distribute_params`), and
+`shard` places an activation where the reference places its sharding
+constraints.  Tensors a function makes itself (positions, masks, the rope
+angles) are the same on every rank and join as replicated DTensors
+(`like`).  Without a mesh everything is a plain tensor and `shard` does
+nothing.
 
 Parameters are built with ``requires_grad=False``: serving needs no
 gradient, and the functions here then return plain tensors outside
@@ -29,14 +36,23 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.kernels.flash_attention.ops import (
-    constrain_folded,
-    gqa_attention_folded,
+from repro_torch.distributed.sharding import (
+    fold_heads,
+    like,
+    placements,
+    spec_fits,
+    split_heads,
+    unfold_heads,
+    unshard,
 )
+from repro_torch.kernels.flash_attention.ops import constrain_folded, gqa_attention_folded
 
 __all__ = [
     "RuntimeFlags",
+    "shard",
+    "pad_local",
     "rms_norm",
     "gain",
     "Linear",
@@ -64,6 +80,38 @@ class RuntimeFlags:
     # kv block of the plain blocked-attention path (long keys); the
     # attention kernel chooses its own tiles
     attn_block_k: int = 4096
+    # distribution: set by the launchers.  Blocks place explicit
+    # placements where the reference places sharding constraints.
+    mesh: object = None           # torch DeviceMesh | None
+    dp: tuple = ("data",)         # data-parallel axis names ('pod', 'data')
+
+
+def shard(x, flags: RuntimeFlags, *spec):
+    """Redistribute the DTensor ``x`` to ``spec`` when a mesh is configured;
+    no-op otherwise.  ``spec`` entries: "dp" expands to ``flags.dp``; None
+    and "model" pass through.  A split that does not divide its dim is
+    dropped (that dim replicated): GSPMD pads such a dim, and DTensor views
+    need even shards."""
+    if flags is None or flags.mesh is None:
+        return x
+    expanded = tuple(flags.dp if s == "dp" else s for s in spec)
+    expanded = tuple(e if spec_fits(flags.mesh, (n,), (e,)) else None
+                     for n, e in zip(x.shape, expanded))
+    return x.redistribute(flags.mesh, placements(flags.mesh, expanded))
+
+
+def pad_local(x, pad):
+    """``F.pad(x, pad)`` (zeros); a DTensor is padded shard by shard, the
+    padded dims first made whole on every rank."""
+    if not isinstance(x, DTensor):
+        return torch.nn.functional.pad(x, pad)
+    from torch.distributed.tensor.experimental import local_map
+
+    x = unshard(x, *(x.ndim - 1 - i for i in range(len(pad) // 2) if pad[2 * i: 2 * i + 2]
+                     != (0, 0)))
+    plc = list(x.placements)
+    return local_map(lambda t: torch.nn.functional.pad(t, pad), out_placements=plc,
+                     in_placements=(plc,), device_mesh=x.device_mesh)(x)
 
 
 def _normal(gen, shape, scale, device, dtype):
@@ -119,7 +167,8 @@ def rope(x, positions, theta: float):
     """Rotary embedding. x: ``[B, L, H, D]``; positions: ``[B, L]``."""
     half = x.shape[-1] // 2
     ang = _rope_angles(positions, half, theta)            # [B, L, half]
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    cos = like(x, torch.cos(ang)[:, :, None, :])
+    sin = like(x, torch.sin(ang)[:, :, None, :])
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -129,7 +178,7 @@ def rope_folded(x, positions, theta: float):
     """Rotary embedding on folded ``[B*H, L, D]``; positions ``[B*H, L]``."""
     half = x.shape[-1] // 2
     ang = _rope_angles(positions, half, theta)            # [Z, L, half]
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = like(x, torch.cos(ang)), like(x, torch.sin(ang))
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -163,10 +212,9 @@ def attention(p: Attention, x, cfg, flags: RuntimeFlags, positions=None,
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     src = x if kv_x is None else kv_x
     lk = src.shape[1]
-    fold = lambda t, h, n: t.reshape(b, n, h, hd).transpose(1, 2).reshape(b * h, n, hd)
-    qf = constrain_folded(fold(linear(p.wq, x), hq, l), b * hq)
-    kf = constrain_folded(fold(linear(p.wk, src), hkv, lk), b * hkv)
-    vf = constrain_folded(fold(linear(p.wv, src), hkv, lk), b * hkv)
+    qf = constrain_folded(fold_heads(linear(p.wq, x), hq), flags, b * hq)
+    kf = constrain_folded(fold_heads(linear(p.wk, src), hkv), flags, b * hkv, is_kv=True)
+    vf = constrain_folded(fold_heads(linear(p.wv, src), hkv), flags, b * hkv, is_kv=True)
     if use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
@@ -175,11 +223,11 @@ def attention(p: Attention, x, cfg, flags: RuntimeFlags, positions=None,
         kf = rope_folded(kf, posf(hkv), cfg.rope_theta)
     of = gqa_attention_folded(qf, kf, vf, batch=b, causal=causal and kv_x is None,
                               use_kernels=flags.use_kernels,
-                              block_k=flags.attn_block_k)
-    o3 = of.reshape(b, hq, l, hd).transpose(1, 2).reshape(b, l, hq * hd)
-    out = linear(p.wo, o3)
-    k4 = kf.reshape(b, hkv, lk, hd).transpose(1, 2)
-    v4 = vf.reshape(b, hkv, lk, hd).transpose(1, 2)
+                              block_k=flags.attn_block_k, flags=flags)
+    o3 = unfold_heads(constrain_folded(of, flags, b * hq), flags, b).reshape(b, l, hq * hd)
+    o3 = shard(o3, flags, "dp", None, "model")
+    out = shard(linear(p.wo, o3), flags, "dp", None, None)
+    k4, v4 = unfold_heads(kf, flags, b), unfold_heads(vf, flags, b)
     return out, {"k": k4, "v": v4}
 
 
@@ -193,28 +241,52 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg,
     copy of the cache per step) and q is roped at ``pos``; without it
     (cross-attention to a fixed cache) nothing is written and q is not
     roped, as in the reference.  Keys past ``pos`` are masked.  Returns
-    ``out [B, 1, d]``.
+    ``out [B, 1, d]``.  A DTensor cache may split its sequence over ranks
+    (`sharding.cache_placements`); the rank that holds ``pos`` writes it.
     """
     b = x.shape[0]
     hd = cfg.hd
-    q = linear(p.wq, x).reshape(b, 1, cfg.n_heads, hd)
+    # the query heads whole on every rank: the products below merge them
+    # into the batch dim
+    q = split_heads(linear(p.wq, x), cfg.n_heads, whole=True)
     if update_cache:
-        k_new = linear(p.wk, x).reshape(b, 1, cfg.n_kv_heads, hd)
-        v_new = linear(p.wv, x).reshape(b, 1, cfg.n_kv_heads, hd)
+        k_new = split_heads(linear(p.wk, x), cfg.n_kv_heads)
+        v_new = split_heads(linear(p.wv, x), cfg.n_kv_heads)
         positions = torch.full((b, 1), pos, device=x.device)
-        cache_k[:, pos:pos + 1] = rope(k_new, positions, cfg.rope_theta)
-        cache_v[:, pos:pos + 1] = v_new
+        _write_pos(cache_k, pos, rope(k_new, positions, cfg.rope_theta))
+        _write_pos(cache_v, pos, v_new)
         q = rope(q, positions, cfg.rope_theta)
     group = cfg.n_heads // cfg.n_kv_heads
-    kq = cache_k.repeat_interleave(group, dim=2) if group > 1 else cache_k
-    vq = cache_v.repeat_interleave(group, dim=2) if group > 1 else cache_v
+    s_len, hkv = cache_k.shape[1], cfg.n_kv_heads
+    # each kv head repeated for its query heads (repeat_interleave on dim 2)
+    rep = lambda t: t[:, :, :, None].expand(b, s_len, hkv, group, hd).reshape(
+        b, s_len, hkv * group, hd)
+    kq, vq = (rep(cache_k), rep(cache_v)) if group > 1 else (cache_k, cache_v)
     f32 = torch.float32
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f32) * hd ** -0.5, kq.to(f32))
-    valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
+    valid = like(logits, torch.arange(s_len, device=x.device) <= pos)
     logits = torch.where(valid, logits, -1e30)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", w, vq.to(f32)).to(x.dtype)
     return linear(p.wo, o.reshape(b, 1, cfg.n_heads * hd))
+
+
+def _write_pos(cache, pos: int, value):
+    """``cache[:, pos] = value[:, 0]`` in place.  A DTensor cache writes into
+    this rank's shard when it holds ``pos`` (the sequence may be split)."""
+    if not isinstance(cache, DTensor):
+        cache[:, pos:pos + 1] = value
+        return
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = cache.device_mesh
+    plc = tuple(Replicate() if p.is_shard(1) else p for p in cache.placements)
+    val = value.redistribute(mesh, plc).to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh,
+                                                          cache.placements)
+    row = pos - offset[1]
+    if 0 <= row < shape[1]:
+        cache.to_local()[:, row:row + 1] = val
 
 
 # ---------------------------------------------------------------- mlp
@@ -231,10 +303,11 @@ class MLP(nn.Module):
         self.w2 = Linear(ff, d, scale=ff ** -0.5, **kw)
 
 
-def mlp(p: MLP, x, kind: str):
+def mlp(p: MLP, x, kind: str, flags: RuntimeFlags | None = None):
     if kind == "swiglu":
         h = torch.nn.functional.silu(linear(p.w1, x)) * linear(p.w3, x)
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = torch.nn.functional.gelu(linear(p.w1, x), approximate="tanh")
-    return linear(p.w2, h)
+    h = shard(h, flags, "dp", None, "model")
+    return shard(linear(p.w2, h), flags, "dp", None, None)

@@ -17,9 +17,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed.sharding import unshard
 from repro_torch.kernels.ssd_scan.ops import linear_recurrence
 
-from .layers import Linear, RuntimeFlags, gain, linear, rms_norm
+from .layers import Linear, RuntimeFlags, gain, linear, pad_local, rms_norm
 
 __all__ = ["Mamba2Block", "mamba2_block", "mamba2_decode", "init_mamba2_state"]
 
@@ -59,7 +60,7 @@ def _causal_conv(x, w, state=None):
     """
     kw = w.shape[0]
     if state is None:
-        xp = F.pad(x, (0, 0, kw - 1, 0))
+        xp = pad_local(x, (0, 0, kw - 1, 0))
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     out = xp[:, 0:x.shape[1]] * w[0].to(x.dtype)
@@ -73,7 +74,7 @@ def mamba2_block(p: Mamba2Block, u, cfg, flags: RuntimeFlags,
     """u: ``[B, L, d]`` -> ``(out [B, L, d], (conv_state, ssm_state))``."""
     b, l, _ = u.shape
     d_inner, nh, hd, ds = _dims(cfg)
-    zxbcdt = linear(p.in_proj, u)
+    zxbcdt = unshard(linear(p.in_proj, u), -1)   # whole before it is cut in parts
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * nh * ds]
     dt = zxbcdt[..., -nh:]
@@ -88,9 +89,10 @@ def mamba2_block(p: Mamba2Block, u, cfg, flags: RuntimeFlags,
 
     # discretized input: x_bar = dt * x ; recurrence S += (B dt x)
     v_in = x * dt_s[..., None].to(x.dtype)
+    # head sharding happens on the merged B*H dim inside linear_recurrence
     y, ssm_state = linear_recurrence(
         cmat, bmat, v_in, w, s0=ssm_state, inclusive=True,
-        use_kernels=flags.use_kernels)
+        use_kernels=flags.use_kernels, flags=flags)
     y = y + x * p.d_skip[None, None, :, None].to(x.dtype)
     y = y.reshape(b, l, d_inner)
     y = rms_norm(y * F.silu(z), p.norm_g, cfg.norm_eps)

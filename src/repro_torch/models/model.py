@@ -46,8 +46,10 @@ import functools
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import batch_placements, like, place, unshard
 from repro_torch.kernels.common import resolve_device
 
 from . import mamba2 as m2
@@ -63,7 +65,9 @@ from .layers import (
     gain,
     linear,
     mlp,
+    pad_local,
     rms_norm,
+    shard,
 )
 from .moe import MoE, moe_ffn
 
@@ -243,22 +247,22 @@ def _dense_block(lp: DenseLayer, x, cfg, flags, kv_x=None, causal=True,
     h, kv = attention(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, flags,
                       kv_x=kv_x, causal=causal, use_rope=use_rope)
     x = x + h
-    x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp)
+    x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp, flags)
     return x, kv
 
 
 def _moe_block(lp: MoELayer, x, cfg, flags):
     h, kv = attention(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, flags)
-    x, aux = _moe_ffn(lp, x + h, cfg)
+    x, aux = _moe_ffn(lp, x + h, cfg, flags)
     return x, kv, aux
 
 
-def _moe_ffn(lp: MoELayer, x, cfg, dropless=False):
+def _moe_ffn(lp: MoELayer, x, cfg, flags, dropless=False):
     """The MoE half of a moe layer (plus Arctic's parallel dense FFN)."""
     z = rms_norm(x, lp.ln2, cfg.norm_eps)
-    mo, aux = moe_ffn(lp.moe, z, cfg, dropless=dropless)
+    mo, aux = moe_ffn(lp.moe, z, cfg, flags, dropless=dropless)
     if cfg.moe_dense_residual:
-        mo = mo + mlp(lp.dense_mlp, z, cfg.mlp)
+        mo = mo + mlp(lp.dense_mlp, z, cfg.mlp, flags)
     return x + mo, aux
 
 
@@ -293,7 +297,7 @@ def _kv(kvs, *lead):
 def _encdec_block(lp: DecoderLayer, x, enc, cfg, flags):
     h, kv = attention(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, flags)
     x = _cross_block(lp, x + h, enc, cfg, flags)
-    return x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp), kv
+    return x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp, flags), kv
 
 
 def _vlm_group(grp: VLMGroup, x, vis, cfg, flags):
@@ -332,7 +336,7 @@ def _backbone(model: LM, x, cfg, flags, front: dict, collect_cache: bool = True)
     moe load-balancing loss, the mean over layers (0 for other families)."""
     fam = cfg.family
     bind = functools.partial
-    aux = x.new_zeros((), dtype=torch.float32)
+    aux = like(x, torch.zeros((), device=x.device))
     cache = {}
     if fam in ("dense", "moe", "encdec"):
         kvs, auxes = [], []
@@ -386,17 +390,35 @@ def _backbone(model: LM, x, cfg, flags, front: dict, collect_cache: bool = True)
     raise ValueError(fam)
 
 
-def _embed(model: LM, tokens, cfg):
-    return model.emb.emb[tokens].to(compute_dtype(cfg))
+def _embed(model: LM, tokens, cfg, flags):
+    # on a mesh the vocab-split table is gathered for the lookup (GSPMD
+    # gathers a table that a gather reads, too); its gradient scatters back
+    x = F.embedding(tokens, unshard(model.emb.emb, 0))
+    if flags.mesh is not None:
+        x = place(x, flags.mesh, batch_placements(flags.mesh, x.shape[0], x.ndim))
+    return x.to(compute_dtype(cfg))
 
 
-def _unembed(model: LM, x, cfg):
+def _unembed(model: LM, x, cfg, flags=None):
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ model.emb.emb.T.to(x.dtype)
     else:
         logits = linear(model.lm_head, x)
+    # vocab-sharded logits, where the reference constrains them
+    logits = shard(logits, flags, "dp", None, "model")
     return logits.float()
+
+
+def _place_inputs(flags, tokens, extra: dict):
+    """On a mesh: the token (and label) arrays batch-placed, the frontends'
+    inputs too (`sharding.batch_placements`); unchanged otherwise."""
+    if flags.mesh is None:
+        return tokens, extra
+    b = tokens.shape[0]
+    plc = lambda t: batch_placements(flags.mesh, b, t.ndim)
+    return (place(tokens, flags.mesh, plc(tokens)),
+            {k: place(v, flags.mesh, plc(v)) for k, v in extra.items()})
 
 
 def _run_frontends(model: LM, cfg, flags, extra: dict) -> dict:
@@ -423,10 +445,13 @@ def train_forward(model: LM, tokens, labels, cfg, flags: RuntimeFlags,
     a 0-d f32 tensor that autograd records (for the parameters that require
     a gradient), and the detached ``nll``, ``aux`` and ``ppl = exp(min(nll,
     20))``."""
-    front = _run_frontends(model, cfg, flags, extra or {})
-    x = _embed(model, tokens, cfg)
+    tokens, extra = _place_inputs(flags, tokens, dict(extra or {}, labels=labels))
+    labels = extra.pop("labels")
+    front = _run_frontends(model, cfg, flags, extra)
+    x = _embed(model, tokens, cfg, flags)
     x, _, aux = _backbone(model, x, cfg, flags, front, collect_cache=False)
-    logits = _unembed(model, x, cfg)
+    logits = _unembed(model, x, cfg, flags)
+    logits = unshard(logits, -1)     # the vocab whole on every rank for the loss
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
     nll = (lse - gold).mean()
@@ -448,16 +473,15 @@ def prefill(model: LM, tokens, cfg, flags: RuntimeFlags, extra: dict | None = No
     append (vlm's cross KV keeps its ``vision_tokens``).
     """
     seq = tokens.shape[1]
-    front = _run_frontends(model, cfg, flags, extra or {})
-    x = _embed(model, tokens, cfg)
+    tokens, extra = _place_inputs(flags, tokens, extra or {})
+    front = _run_frontends(model, cfg, flags, extra)
+    x = _embed(model, tokens, cfg, flags)
     x, cache, _ = _backbone(model, x, cfg, flags, front)
-    logits = _unembed(model, x[:, -1:], cfg)
+    logits = _unembed(model, x[:, -1:], cfg, flags)
 
     if pad_to is not None and pad_to != seq and "kv" in cache:
-        def pad(kv):                         # [..., B, S, H, D]
-            out = kv.new_zeros((*kv.shape[:-3], pad_to, *kv.shape[-2:]))
-            out[..., :seq, :, :] = kv
-            return out
+        # [..., B, S, H, D]: zeros after the prompt's S positions
+        pad = lambda kv: pad_local(kv, (0, 0, 0, 0, 0, pad_to - seq))
         cache["kv"] = {name: pad(kv) for name, kv in cache["kv"].items()}
     cache["pos"] = seq
     cache.update(front)
@@ -513,28 +537,29 @@ def decode_step(model: LM, token, cache, cfg, flags: RuntimeFlags):
     attention over ``_enc_out`` with one query row.
     """
     pos = cache["pos"]
-    x = _embed(model, token, cfg)
+    token, _ = _place_inputs(flags, token, {})
+    x = _embed(model, token, cfg, flags)
     fam = cfg.family
     if fam in ("dense", "moe", "encdec"):
         for i, lp in enumerate(model.layers):
             x = _self_attn_decode(lp, x, cache["kv"], i, pos, cfg)
             if fam == "moe":
-                x, _ = _moe_ffn(lp, x, cfg, dropless=True)
+                x, _ = _moe_ffn(lp, x, cfg, flags, dropless=True)
                 continue
             if fam == "encdec":
                 x = _cross_block(lp, x, cache["_enc_out"], cfg, flags)
-            x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp)
+            x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp, flags)
     elif fam == "vlm":
         ckv = cache["cross_kv"]
         for g, grp in enumerate(model.groups):
             for i, lp in enumerate(grp.self):
                 x = _self_attn_decode(lp, x, cache["kv"], (g, i), pos, cfg)
-                x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp)
+                x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp, flags)
             lp = grp.cross
             x = x + attention_decode(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps),
                                      ckv["k"][g], ckv["v"][g], cfg.vision_tokens - 1,
                                      cfg, update_cache=False)
-            x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp)
+            x = x + mlp(lp.mlp, rms_norm(x, lp.ln2, cfg.norm_eps), cfg.mlp, flags)
     elif fam == "ssm":
         tsh, wkv, csh = cache["state"]
         for i, lp in enumerate(model.layers):
@@ -550,8 +575,8 @@ def decode_step(model: LM, token, cache, cfg, flags: RuntimeFlags):
                     conv[g, i], ssm[g, i])
                 x = x + h
             x = _self_attn_decode(shared, x, cache["kv"], g, pos, cfg)
-            x = x + mlp(shared.mlp, rms_norm(x, shared.ln2, cfg.norm_eps), cfg.mlp)
+            x = x + mlp(shared.mlp, rms_norm(x, shared.ln2, cfg.norm_eps), cfg.mlp, flags)
     else:
         raise ValueError(fam)
     cache["pos"] = pos + 1
-    return _unembed(model, x, cfg), cache
+    return _unembed(model, x, cfg, flags), cache

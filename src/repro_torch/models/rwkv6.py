@@ -69,8 +69,7 @@ class RWKVChannelMix(nn.Module):
 
 def _shifted(x, shift_state):
     """x one token later: the carried last token (zeros) in front."""
-    b, _, d = x.shape
-    prev = (x.new_zeros((b, 1, d)) if shift_state is None
+    prev = (torch.zeros_like(x[:, :1]) if shift_state is None
             else shift_state.to(x.dtype))
     return torch.cat([prev, x[:, :-1]], dim=1)
 
@@ -93,7 +92,8 @@ def rwkv_time_mix(p: RWKVTimeMix, x, cfg, flags: RuntimeFlags,
     g = F.silu(linear(p.wg, xs[4]))
 
     y, wkv_state = linear_recurrence(r, k, v, w, s0=wkv_state, u_bonus=p.u_bonus,
-                                     inclusive=False, use_kernels=flags.use_kernels)
+                                     inclusive=False, use_kernels=flags.use_kernels,
+                                     flags=flags)
     y = y.reshape(b, l, inner)
     y = rms_norm(y, p.ln_g, cfg.norm_eps) * g
     return linear(p.wo, y), (x[:, -1:, :], wkv_state)

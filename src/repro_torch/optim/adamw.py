@@ -26,7 +26,8 @@ OptState = dict  # {"m": {name: tensor}, "v": {name: tensor}, "step": int}
 
 
 def adamw_init(model: torch.nn.Module) -> OptState:
-    zeros = lambda: {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like keeps a DTensor parameter's placements
+    zeros = lambda: {name: torch.zeros_like(p, dtype=torch.float32).detach()
                      for name, p in model.named_parameters()}
     return {"m": zeros(), "v": zeros(), "step": 0}
 

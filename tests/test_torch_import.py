@@ -37,7 +37,10 @@ def test_import_with_jax_blocked():
         "import repro_torch.launch.train, repro_torch.launch.steps\n"
         "from repro_torch import optim, data, distributed, checkpoint\n"
         "from repro_torch.optim import adamw, clip, schedules\n"
-        "from repro_torch.distributed import elastic, fault_tolerance\n"
+        "from repro_torch.distributed import elastic, fault_tolerance, sharding\n"
+        "from repro_torch.launch import dryrun, hlo_analysis, mesh, roofline, shapes\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # importing them starts no process group\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -73,7 +76,8 @@ def test_port_files_found():
             "contracts.py", "hazards.py", "resilience.py",
             "torch_quickstart.py", "adamw.py", "clip.py", "schedules.py",
             "pipeline.py", "elastic.py", "fault_tolerance.py", "checkpoint.py",
-            "steps.py", "train.py"} <= names
+            "steps.py", "train.py", "sharding.py", "mesh.py", "shapes.py", "dryrun.py",
+            "hlo_analysis.py", "roofline.py"} <= names
 
 
 def test_default_device_is_cuda_and_raises_without_it():

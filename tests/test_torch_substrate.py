@@ -472,9 +472,51 @@ def test_train_injected_failure_rolls_back(tmp_path, capsys):
 
 
 def test_train_refuses_a_mesh():
-    for extra in (["--production-mesh"], ["--model-axis", "2"]):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    """A mesh that the ranks cannot fill is refused, as ``jax.make_mesh``
+    refuses a device count that does not fit: this process is a world of
+    one, and the production mesh needs 256 ranks."""
+    for extra, msg in ((["--production-mesh"], "needs 256 ranks"),
+                       (["--model-axis", "2"], "does not divide 1 rank")):
+        with pytest.raises(ValueError, match=msg):
             train.main(ARGS + extra)
+
+
+def test_launchers_own_the_process_group():
+    """A world of one trains and serves plain tensors and starts no process
+    group; a refused mesh leaves none behind; a caller's (1, 1) mesh, passed
+    in, is used, left to the caller, and trains the plain run's losses;
+    after it ends, the next run is plain again."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import launch_mesh, make_local_mesh
+
+    assert not dist.is_initialized()
+    plain = train.main(ARGS)
+    assert not dist.is_initialized()
+    with launch_mesh(device="cpu") as mesh:
+        assert mesh is None
+    with pytest.raises(ValueError, match="does not divide 1 rank"):
+        train.main(ARGS + ["--model-axis", "2"])
+    assert not dist.is_initialized()
+    served = serve.main(["--reduced", "--device", "cpu", "--requests", "2",
+                         "--prefill-len", "8", "--decode-steps", "2"])
+    assert served["mesh"] is None and not dist.is_initialized()
+    mesh = make_local_mesh(device="cpu")
+    try:
+        with launch_mesh(device="cpu") as m:      # still a world of one
+            assert m is None
+        assert dist.is_initialized()              # the caller's group stays
+        tr = train.setup(train.parse_args(ARGS), mesh=mesh)
+        assert all(isinstance(p, DTensor) for p in tr.model.parameters())
+        on_mesh = train.main(ARGS, mesh=mesh)
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(on_mesh["losses"], plain["losses"], rtol=1e-6)
+    again = train.main(ARGS)
+    assert again["losses"] == plain["losses"] and not dist.is_initialized()
 
 
 def test_prefill_and_decode_steps_equal_the_entry_points():
