@@ -197,10 +197,40 @@ on each rank's local rows:
      per-device dot_flops, collective bytes and the roofline's terms at the
      H100's datasheet peaks.
 
+Then the user entry points outside src/, each called as a user calls it
+(its main(argv), on the card; counters set to 0 before it, read after):
+
+  30. examples/torch_quickstart.py: steps 1-5 as before, then step 6 forces
+     the row-blocked kernel on band_cz (placement "blocked", one launch of
+     sptrsv_cuda_blocked, max error <= RTOL * max|x_ref| against
+     serial_solve) and step 7 prints the three dataflows' cycles (coarse,
+     fine, medium); step 6's launch is held against its plain version and
+     timed beside cuSPARSE;
+  31. examples/torch_ssm_as_sptrsv.py at the reference's sizes (n = 512, 8
+     right-hand sides; B, L, H, K, V = 4, 4096, 8, 32, 32): every
+     equivalence check True; medium makes one chunked_scan_cuda launch a
+     call, agrees with the plain chunked path, and its launch with
+     chunked_scan_plain on the same inputs (SCAN_REL), timed beside its
+     bound; the three granularities' ms; the bidiagonal program through
+     make_solver(batch=8, backend="cuda"), one sptrsv_cuda launch, against
+     serial_solve at RTOL and its plain version;
+  32. examples/torch_serve_batch.py (granite-moe-1b-a400m reduced, 8
+     requests, 64 prompt tokens, 32 decode steps): decode tokens/s > 0,
+     one attention launch per layer a prefill and none in decode, the
+     first launch against its twin beside SDPA; a second run gives the warm
+     rates (the first pays the process's first-use costs);
+  33. examples/torch_train_lm.py: lm-100m at full width and depth, the
+     reference example's 300 steps (B = 4, S = 256, lr 1e-3) into a fresh
+     build/train_lm_ckpt: the example's own assertion (last loss below the
+     first), checkpoints committed at steps 100, 200 and 300, no kernel
+     launch; step ms (median after 3), tokens/s, peak GiB;
+  34. scripts/torch_lint_program.py --matrix ckt_rajat04 --schedule paper
+     --frontier, host only: exit 0 and SPT208 in its report.
+
 Launch counters are set to 0 right before each main-path run (and each
-path of steps 7-11 and 15-28) and read right after it.  It prints one
-{"kernels": [...], "paths": [...], "training": [...], "mesh": [...]} line
-and, last,
+path of steps 7-11 and 15-34) and read right after it.  It prints one
+{"kernels": [...], "paths": [...], "training": [...], "mesh": [...],
+"examples": [...]} line and, last,
 {"ok": true, "device": {...}}; any failed check raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing a result.
@@ -513,13 +543,18 @@ def main() -> int:
     model_launches.update(train_launches)
     mesh_records, mesh_launches = mesh_phase(smi)
     model_launches.update(mesh_launches)
+    torch.cuda.empty_cache()
+    example_records, more_paths, example_launches = examples_phase()
+    paths += more_paths
+    launches_by_path.update(example_launches)
+    model_launches.update(example_launches)
     for e in entries:
         if e["name"] in wrappers:
             e["launches_by_path"] = {path: n[e["name"]] for path, n in launches_by_path.items()}
         else:
             e["launches_by_path"] = {path: n[e["name"]] for path, n in model_launches.items()}
     print(json.dumps({"kernels": entries, "paths": paths, "training": training,
-                      "mesh": mesh_records}))
+                      "mesh": mesh_records, "examples": example_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2175,6 +2210,277 @@ def mesh_phase(smi):
             dist.destroy_process_group()
     records.append(_dryrun(smi))
     return records, {r["path"]: r["launches"] for r in records if "launches" in r}
+
+
+# -- steps 30-34: the user entry points outside src/ ----------------------------
+LINT_ARGV = ["--matrix", "ckt_rajat04", "--schedule", "paper", "--frontier"]
+TRAIN_LM_CHECKPOINTS = [100, 200, 300]
+
+
+def _load_entry(relpath):
+    """An example or script of the repository, imported from its path."""
+    import importlib.util
+
+    path = os.path.join(ROOT, relpath)
+    spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _drive_all(what, fn, launches_by_path):
+    """`_drive` over all four kernels, its launches recorded under ``what``."""
+    out, launches_by_path[what] = _drive(_all_wrappers(), what, fn)
+    return out, launches_by_path[what]
+
+
+def _sptrsv_path_entry(path, prog, mat, bmat, placement, x_ref):
+    """The SpTRSV launch a ``placement`` solver of ``bmat``'s width makes on
+    ``prog``: held against its plain version on the same staged inputs
+    (RTOL), timed (CUDA events), beside the card's bound and cuSPARSE on
+    the same triangle, whose x is held against ``x_ref``."""
+    import torch
+
+    from repro_torch.kernels.sptrsv import ops
+
+    nb = bmat.shape[1]
+    core = ops.build_solver_cols(prog, nb, placement=placement, device="cuda")
+    kname, launch, plain, bp, _ = _staged_launch(prog, core, bmat)
+    xk = launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xp = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _close(xk[:prog.n].cpu().numpy(), xp[:prog.n].cpu().numpy(),
+                 f"{kname} on {path} vs its plain version")
+    launch()
+    ms = _event_ms(launch, 10)
+    xl, library_ms = _library_solve(mat.rowptr, mat.colidx, mat.values,
+                                    bp[:prog.n].contiguous(), upper=False)
+    _close(xl.cpu().numpy(), x_ref, f"{path} library solve vs serial_solve")
+    bound_ms, bound_by = _sptrsv_bound_ms(prog, nb)
+    print(f"{kname} on {path}: {ms:.4f} ms, plain {plain_ms:.1f} ms, library "
+          f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), max abs err vs "
+          f"plain {err:.3e}, {prog.cycles} emitted cycles, B={nb}", flush=True)
+    return {"path": path, "name": kname, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[kname], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "n": prog.n, "nnz": prog.stats.nnz, "B": nb,
+            "emitted_cycles": prog.cycles, "placement": core.placement,
+            "x_in_smem": core.x_in_smem}
+
+
+def _quickstart(launches_by_path):
+    """Step 30: examples/torch_quickstart.py on the card."""
+    import numpy as np
+
+    from repro_torch.core import api
+
+    qs = _load_entry("examples/torch_quickstart.py")
+    out, launches = _drive_all("torch_quickstart", lambda: qs.main([]), launches_by_path)
+    blk = out["blocked"]
+    print(f"step 30, torch_quickstart: step 6 placement {blk['placement']}, window "
+          f"{blk['window']} rows, stride {blk['stride']}, {blk['num_blocks']} blocks, "
+          f"launches {blk['launches']}, max abs err {blk['max_err']:.3e} (max |x_ref| "
+          f"{blk['max_ref']:.3e}); step 7 cycles {out['cycles']}", flush=True)
+    assert blk["placement"] == "blocked", blk
+    assert blk["launches"] == {"sptrsv_cuda": 0, "sptrsv_cuda_blocked": 1}, blk
+    assert blk["max_err"] <= RTOL * blk["max_ref"], blk
+    assert launches["sptrsv_cuda_blocked"] >= 1 and launches["sptrsv_cuda"] >= 1, launches
+    assert not launches["chunked_scan_cuda"] and not launches["flash_attention_cuda"]
+    assert out["cycles"]["medium"] < min(out["cycles"]["coarse"], out["cycles"]["fine"])
+    # step 6's launch at its shapes, against its plain version, timed
+    band = api.matrix("band_cz")
+    bb = np.random.default_rng(SEED).standard_normal((band.n, 8))
+    x_ref = np.stack([api.reference_solve(band, bb[:, j]) for j in range(8)], axis=1)
+    entry = _sptrsv_path_entry("torch_quickstart step 6 (band_cz, blocked)",
+                               api.compile(band), band, bb, "blocked", x_ref)
+    entry.update(launches=blk["launches"]["sptrsv_cuda_blocked"],
+                 window=blk["window"], stride=blk["stride"], num_blocks=blk["num_blocks"])
+    return {"path": "torch_quickstart", "cycles": out["cycles"], "blocked": blk}, [entry]
+
+
+def _ssm(launches_by_path):
+    """Step 31: examples/torch_ssm_as_sptrsv.py at the reference's sizes."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.kernels.ssd_scan import kernel as scan_kernel
+    from repro_torch.kernels.ssd_scan import ops as scan_ops
+
+    ssm = _load_entry("examples/torch_ssm_as_sptrsv.py")
+    calls = []
+    scan_ops.chunked_scan_cuda = _tap(calls, scan_kernel.chunked_scan_cuda)
+    try:
+        out, launches = _drive_all("torch_ssm_as_sptrsv", lambda: ssm.main([]),
+                                   launches_by_path)
+    finally:
+        scan_ops.chunked_scan_cuda = scan_kernel.chunked_scan_cuda
+    assert all(out["checks"].values()), out["checks"]
+    # medium ran once to warm up and 3 times timed; nothing else launches
+    assert launches == {"sptrsv_cuda": 0, "sptrsv_cuda_blocked": 0,
+                        "chunked_scan_cuda": 4, "flash_attention_cuda": 0}, launches
+    inputs = out["inputs"]
+    _, one = _drive_all("torch_ssm_as_sptrsv medium, one call",
+                        lambda: ssm.medium(*inputs), {})
+    assert one["chunked_scan_cuda"] == 1, one
+    y = ssm.medium(*inputs)
+    y_plain, _ = scan_ops.linear_recurrence(*inputs, use_kernels=False)
+    err_path = (y - y_plain).abs().max().item()
+    scale_path = y_plain.abs().max().item()
+    assert err_path <= SCAN_REL * scale_path, (err_path, scale_path)
+    b, seq, h, kdim = inputs[0].shape
+    e = _kernel_check("chunked_scan_cuda", *calls[0], h)
+    e.update(path="torch_ssm_as_sptrsv medium", launches=launches["chunked_scan_cuda"],
+             launches_per_call=one["chunked_scan_cuda"], granularity_ms=out["ms"],
+             medium_vs_plain_path_max_abs_err=err_path)
+    print(f"step 31, torch_ssm_as_sptrsv [B={b}, L={seq}, H={h}, K={kdim}, "
+          f"V={inputs[2].shape[3]}]: coarse {out['ms']['coarse']:.2f} ms, medium "
+          f"{out['ms']['medium']:.3f} ms, fine {out['ms']['fine']:.2f} ms a call; "
+          f"chunked_scan_cuda {e['shape']}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+          f"({e['bound_by']}), plain {e['plain_ms']:.2f} ms, {one['chunked_scan_cuda']} "
+          f"launch a call, max abs err vs plain {e['max_abs_err']:.3e} (max |plain| "
+          f"{e['max_abs_plain']:.3e}); medium vs the plain path {err_path:.3e}; checks "
+          f"{out['checks']}", flush=True)
+    # the bidiagonal program through the resident kernel
+    prog, mat, U, H_ref = out["prog"], out["mat"], out["U"], out["H_ref"]
+    solver = api.make_solver(prog, batch=U.shape[1], backend="cuda")
+    assert solver.placement == "resident", solver.placement
+    x, sl = _drive_all("torch_ssm_as_sptrsv bidiagonal solve", lambda: solver(U),
+                       launches_by_path)
+    assert sl == {"sptrsv_cuda": 1, "sptrsv_cuda_blocked": 0, "chunked_scan_cuda": 0,
+                  "flash_attention_cuda": 0}, sl
+    err = _close(x.cpu().numpy(), H_ref, "bidiagonal solve vs serial_solve")
+    s = _sptrsv_path_entry("torch_ssm_as_sptrsv bidiagonal (n=512)", prog, mat, U,
+                           "resident", H_ref)
+    s.update(launches=sl["sptrsv_cuda"], max_abs_err_vs_serial=err)
+    record = {"path": "torch_ssm_as_sptrsv", "ms": out["ms"], "checks": out["checks"]}
+    del out, inputs, y, y_plain
+    torch.cuda.empty_cache()
+    return record, [e, s]
+
+
+def _serve_batch(launches_by_path):
+    """Step 32: examples/torch_serve_batch.py (granite-moe-1b-a400m reduced)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    sb = _load_entry("examples/torch_serve_batch.py")
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    calls = []
+    attn_ops.flash_attention_cuda = _tap(calls, attn_kernel.flash_attention_cuda)
+    try:
+        out, launches = _drive_all("torch_serve_batch", lambda: sb.main([]),
+                                   launches_by_path)
+    finally:
+        attn_ops.flash_attention_cuda = attn_kernel.flash_attention_cuda
+    zero = {"chunked_scan_cuda": 0, "flash_attention_cuda": 0}
+    assert out["decode_tokens_per_s"] > 0 and out["device"].startswith("cuda"), out
+    assert out["launches"] == {"prefill": dict(zero, flash_attention_cuda=cfg.n_layers),
+                               "decode": zero}, out["launches"]
+    assert launches["flash_attention_cuda"] == cfg.n_layers, launches
+    warm = sb.main([])
+    e = _kernel_check("flash_attention_cuda", *calls[0], cfg.n_heads)
+    e.update(path="torch_serve_batch (granite-moe-1b-a400m reduced) prefill",
+             launches=launches["flash_attention_cuda"],
+             prefill_tokens_per_s=out["prefill_tokens_per_s"],
+             decode_tokens_per_s=out["decode_tokens_per_s"],
+             warm_prefill_tokens_per_s=warm["prefill_tokens_per_s"],
+             warm_decode_tokens_per_s=warm["decode_tokens_per_s"])
+    print(f"step 32, torch_serve_batch: prefill {out['prefill_tokens_per_s']:.1f} tok/s, "
+          f"decode {out['decode_tokens_per_s']:.1f} tok/s (a second run: "
+          f"{warm['prefill_tokens_per_s']:.1f}, {warm['decode_tokens_per_s']:.1f}), "
+          f"launches {out['launches']}; "
+          f"flash_attention_cuda {e['shape']} {e['dtype']}: {e['ms']:.4f} ms, "
+          f"scaled_dot_product_attention {e['library_ms']:.4f} ms, bound "
+          f"{e['bound_ms']:.6f} ms, max abs err vs plain {e['max_abs_err']:.3e}",
+          flush=True)
+    return {"path": "torch_serve_batch", "prefill_tokens_per_s": out["prefill_tokens_per_s"],
+            "decode_tokens_per_s": out["decode_tokens_per_s"],
+            "warm_prefill_tokens_per_s": warm["prefill_tokens_per_s"],
+            "warm_decode_tokens_per_s": warm["decode_tokens_per_s"],
+            "launches": out["launches"]}, [e]
+
+
+def _train_lm(launches_by_path):
+    """Step 33: examples/torch_train_lm.py, lm-100m at full width and depth,
+    the reference example's 300 steps."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    tl = _load_entry("examples/torch_train_lm.py")
+    ckpt_dir = os.path.join(ROOT, "build", "train_lm_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r, launches = _drive_all("torch_train_lm", lambda: tl.main(["--ckpt-dir", ckpt_dir]),
+                             launches_by_path)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    committed = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+                       if os.path.exists(os.path.join(ckpt_dir, d, "COMMITTED")))
+    step_ms = float(np.median(r["step_ms"][TRAIN_WARM:]))
+    tokens = 4 * 256
+    print(f"step 33, torch_train_lm (lm-100m, B=4, S=256, lr 1e-3, 300 steps): loss "
+          f"step 1 {r['first_loss']:.4f}, step {r['steps']} {r['last_loss']:.4f}; median "
+          f"step {step_ms:.2f} ms after {TRAIN_WARM}, {tokens / step_ms * 1e3:.0f} tokens/s, "
+          f"peak {peak:.2f} GiB, {wall:.1f} s in all; committed checkpoints {committed}; "
+          f"launches {launches}", flush=True)
+    # tl.main has already asserted the example's own check, last loss below
+    # the first.  Over these 300 fresh batches the loss of either package
+    # stays within ~0.1 of its start, near ln(32768) = 10.40, far from the
+    # docstring's ln 4 (lm-100m cut to 2 layers on the CPU,
+    # scripts/train_curves.py; PERF.md, PR 20), so the check holds by a
+    # margin of a few hundredths.
+    assert r["steps"] == 300 and np.isfinite(r["losses"]).all(), r["steps"]
+    assert committed == TRAIN_LM_CHECKPOINTS, committed
+    assert not any(launches.values()), launches
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"path": "torch_train_lm", "loss_first": r["first_loss"],
+            "loss_last": r["last_loss"], "losses": r["losses"], "steps": r["steps"],
+            "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_gib": peak, "checkpoints": committed, "wall_s": wall}
+
+
+def _lint(launches_by_path):
+    """Step 34: scripts/torch_lint_program.py, host only."""
+    import contextlib
+    import io
+
+    lint = _load_entry("scripts/torch_lint_program.py")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, launches = _drive_all("torch_lint_program", lambda: lint.main(LINT_ARGV),
+                                  launches_by_path)
+    out = buf.getvalue()
+    print(f"step 34, torch_lint_program {' '.join(LINT_ARGV)}: rc {rc}, codes "
+          f"{sorted(set(c for c in out.split() if c.startswith('SPT')))}; launches "
+          f"{launches}", flush=True)
+    assert rc == 0 and "SPT208" in out, (rc, out)
+    assert not any(launches.values()), launches
+    return {"path": "torch_lint_program", "rc": rc, "spt208": True}
+
+
+def examples_phase():
+    """Steps 30-34.  Returns the records, the paths' kernel entries and
+    {path: {kernel: launches}}."""
+    records, paths, launches_by_path = [], [], {}
+    for step, fn in enumerate((_quickstart, _ssm, _serve_batch), start=30):
+        t0 = time.perf_counter()
+        record, entries = fn(launches_by_path)
+        records.append(record)
+        paths += entries
+        print(f"step {step} took {time.perf_counter() - t0:.1f} s", flush=True)
+    for step, fn in ((33, _train_lm), (34, _lint)):
+        t0 = time.perf_counter()
+        records.append(fn(launches_by_path))
+        print(f"step {step} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return records, paths, launches_by_path
 
 
 if __name__ == "__main__":

@@ -9,10 +9,15 @@ kernels (`make_solver(backend="cuda")`), split the columns over devices
 (`make_solver(mesh=...)`: every CUDA card, or two blocks on the one card
 of a one-card machine), solve again through the health-checked ladder
 (`robust_solver`), and serve a short stream of requests through the
-micro-batching service (`make_service`).  Every answer is held against the
+micro-batching service (`make_service`), force the row-blocked kernel on a
+small band (`placement="blocked"`: x and b in device memory behind a
+sliding shared-memory window, which "auto" picks by itself from
+band_big16k up), and compare the paper's three dataflows in cycles (coarse,
+fine and medium; Fig. 6 / Fig. 9a).  Every answer is held against the
 serial forward substitution.  Without ``--device`` it runs on CUDA and
 raises on a machine without a card; ``--device cpu`` runs the kernels'
-plain PyTorch versions (the mesh then names the CPU twice).
+plain PyTorch versions (the mesh then names the CPU twice).  `main`
+returns what steps 6 and 7 found.
 """
 
 import argparse
@@ -22,9 +27,10 @@ import numpy as np
 
 from repro_torch.core import api, shard
 from repro_torch.core.serve import ManualClock
+from repro_torch.kernels.sptrsv import kernel
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--matrix", default="ckt_add20", help="a suite matrix name")
     ap.add_argument("--device", default=None, help="torch device (CUDA by default)")
@@ -76,6 +82,38 @@ def main(argv=None) -> None:
     print(f"make_service: {svc.stats.flush_count()} flush of "
           f"{svc.stats.flushes[0].columns} columns "
           f"({svc.stats.flushes[0].reason}), max err {err:.2e}")
+
+    # 6. large n: past the shared-memory budget the blocked kernel keeps x
+    #    and b in device memory and slides a window of rows over them (flush
+    #    and refill at cycle-block boundaries).  Forced here on a small band
+    #    so it runs quickly; on band_big16k and up placement="auto" picks it.
+    band = api.matrix("band_cz")
+    solver_big = api.make_solver(api.compile(band), batch=8, backend="cuda",
+                                 placement="blocked", device=args.device)
+    plan = solver_big.plan
+    print(f"row-blocked solve: window={plan.window} rows (of n={band.n}), "
+          f"stride={plan.stride}, {plan.num_blocks} cycle blocks")
+    bb = rng.standard_normal((band.n, 8))
+    refs_b = np.stack([api.reference_solve(band, bb[:, j]) for j in range(8)], axis=1)
+    before = (kernel.sptrsv_cuda.launches, kernel.sptrsv_cuda_blocked.launches)
+    x_blk = solver_big(bb).cpu().numpy()
+    launches = {"sptrsv_cuda": kernel.sptrsv_cuda.launches - before[0],
+                "sptrsv_cuda_blocked": kernel.sptrsv_cuda_blocked.launches - before[1]}
+    blocked_err = float(np.abs(x_blk - refs_b).max())
+    print(f"row-blocked      max err: {blocked_err:.2e} (placement "
+          f"{solver_big.placement}, launches {launches})")
+
+    # 7. compare the three dataflows of the paper (Fig. 6 / Fig. 9a)
+    cycles = {"coarse": api.baseline_coarse(mat).stats.cycles,
+              "fine": api.baseline_fine(mat).effective_cycles,
+              "medium": prog.stats.cycles}
+    print(f"cycles: coarse={cycles['coarse']} fine={cycles['fine']:.0f} "
+          f"medium={cycles['medium']}  (lower is better)")
+    return {"blocked": {"placement": solver_big.placement, "window": plan.window,
+                        "stride": plan.stride, "num_blocks": plan.num_blocks,
+                        "max_err": blocked_err, "max_ref": float(np.abs(refs_b).max()),
+                        "launches": launches},
+            "cycles": cycles}
 
 
 if __name__ == "__main__":

@@ -15,8 +15,11 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+ENTRY_POINTS = [REPO / "examples" / f"torch_{name}.py"
+                for name in ("ssm_as_sptrsv", "serve_batch", "train_lm")] + [
+    REPO / "scripts" / "torch_lint_program.py"]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py"] + ENTRY_POINTS
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -77,7 +80,8 @@ def test_port_files_found():
             "torch_quickstart.py", "adamw.py", "clip.py", "schedules.py",
             "pipeline.py", "elastic.py", "fault_tolerance.py", "checkpoint.py",
             "steps.py", "train.py", "sharding.py", "mesh.py", "shapes.py", "dryrun.py",
-            "hlo_analysis.py", "roofline.py"} <= names
+            "hlo_analysis.py", "roofline.py", "torch_ssm_as_sptrsv.py",
+            "torch_serve_batch.py", "torch_train_lm.py", "torch_lint_program.py"} <= names
 
 
 def test_default_device_is_cuda_and_raises_without_it():
@@ -150,3 +154,43 @@ def test_quickstart_runs_on_the_cpu():
     assert out.returncode == 0, out.stderr
     assert "robust_solver: answered on cuda-blocked, incidents []" in out.stdout
     assert "make_service: 1 flush of 8 columns (full)" in out.stdout
+    assert "row-blocked solve: window=" in out.stdout
+    assert "cycles: coarse=398 fine=555 medium=254" in out.stdout
+
+
+# each entry point's run with jax blocked: its argv, and what it must print
+ENTRY_RUNS = {
+    "torch_ssm_as_sptrsv.py": (["--device", "cpu"], "fine   == coarse: True"),
+    "torch_serve_batch.py": (["--device", "cpu"], "OK"),
+    "torch_train_lm.py": (["--tiny", "--device", "cpu", "--ckpt-dir", "{tmp}"],
+                          "OK: loss decreased"),
+    "torch_lint_program.py": (["--matrix", "ckt_rajat04", "--schedule", "paper",
+                               "--frontier"], "SPT208"),
+}
+
+
+@pytest.mark.parametrize("path", ENTRY_POINTS, ids=lambda p: p.name)
+def test_entry_point_runs_with_jax_blocked(path, tmp_path):
+    """Each new example and the lint CLI need only the port: imported from
+    its path with jax blocked and its ``main`` called on the CPU (the SSM
+    example at a small size), it finishes and imports nothing of `repro`."""
+    argv, want = ENTRY_RUNS[path.name]
+    code = (
+        "import importlib.util, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"spec = importlib.util.spec_from_file_location('entry', {str(path)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "if hasattr(mod, 'SIZES'):\n"
+        "    mod.SIZES = (2, 256, 2, 8, 8)\n"
+        f"out = mod.main({[a.format(tmp=tmp_path) for a in argv]!r})\n"
+        "assert out == 0 or isinstance(out, dict), out\n"
+        "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+    )
+    # one thread: the suite's workers share the cores, and these models are tiny
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert want in out.stdout
