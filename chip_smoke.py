@@ -227,10 +227,25 @@ Then the user entry points outside src/, each called as a user calls it
   34. scripts/torch_lint_program.py --matrix ckt_rajat04 --schedule paper
      --frontier, host only: exit 0 and SPT208 in its report.
 
+Last, conformance: the kernels at their edges and on random inputs.
+
+  35. every cuda test of tests/test_torch_cuda.py, through pytest in a
+     process of its own (CONFORMANCE, at most CONFORMANCE_TIMEOUT_S):
+     the SpTRSV kernels at P = 4 to 256 lanes, 1 to 8 columns per CTA, both
+     word planes, blocks of 1 to 128 cycles and a stream cut off mid-chunk,
+     on suite matrices and on the JAX package's property-test programs
+     (random lower triangles under random configs, B = 1, 5, 16), bit for
+     bit their plain twins; the scan and attention at ragged, empty and
+     random shapes; the solve API, the service, the families and a train
+     step on the card.  It must pass every test and skip none (a skip means
+     the card was not seen); its launches go to the "conformance" path,
+     and it prints each kernel's worst |kernel - twin| / max|twin|.
+
 Launch counters are set to 0 right before each main-path run (and each
-path of steps 7-11 and 15-34) and read right after it.  It prints one
+path of steps 7-11 and 15-34) and read right after it; step 35's process
+starts its own at 0 and reports them.  It prints one
 {"kernels": [...], "paths": [...], "training": [...], "mesh": [...],
-"examples": [...]} line and, last,
+"examples": [...], "conformance": {...}} line and, last,
 {"ok": true, "device": {...}}; any failed check raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing a result.
@@ -548,13 +563,17 @@ def main() -> int:
     paths += more_paths
     launches_by_path.update(example_launches)
     model_launches.update(example_launches)
+    torch.cuda.empty_cache()
+    conformance = conformance_phase()
+    launches_by_path["conformance"] = model_launches["conformance"] = conformance["launches"]
     for e in entries:
         if e["name"] in wrappers:
             e["launches_by_path"] = {path: n[e["name"]] for path, n in launches_by_path.items()}
         else:
             e["launches_by_path"] = {path: n[e["name"]] for path, n in model_launches.items()}
     print(json.dumps({"kernels": entries, "paths": paths, "training": training,
-                      "mesh": mesh_records, "examples": example_records}))
+                      "mesh": mesh_records, "examples": example_records,
+                      "conformance": conformance}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2481,6 +2500,75 @@ def examples_phase():
         records.append(fn(launches_by_path))
         print(f"step {step} took {time.perf_counter() - t0:.1f} s", flush=True)
     return records, paths, launches_by_path
+
+
+CONFORMANCE_TIMEOUT_S = 480
+# step 35, run from the repository's root in a process of its own: pytest on
+# the cuda tests of tests/test_torch_cuda.py, then one JSON line with the
+# outcomes, every kernel's launches in that process and its worst error
+# against its twin (the test file's WORST)
+CONFORMANCE = """
+import json, sys
+sys.modules["jax"] = None  # the card's machine has no jax: nothing here may need it
+import pytest
+
+
+class Outcomes:
+    def __init__(self):
+        self.n = {"passed": 0, "failed": 0, "skipped": 0}
+
+    def pytest_runtest_logreport(self, report):
+        if report.failed:
+            self.n["failed"] += 1
+        elif report.skipped:
+            self.n["skipped"] += 1
+        elif report.when == "call":
+            self.n["passed"] += 1
+
+
+outcomes = Outcomes()
+rc = pytest.main(["-q", "-m", "cuda", "-p", "no:cacheprovider",
+                  "tests/test_torch_cuda.py"], plugins=[outcomes])
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.sptrsv.kernel import sptrsv_cuda, sptrsv_cuda_blocked
+from repro_torch.kernels.ssd_scan.kernel import chunked_scan_cuda
+wrappers = (sptrsv_cuda, sptrsv_cuda_blocked, chunked_scan_cuda, flash_attention_cuda)
+tests = sys.modules.get("test_torch_cuda")
+print(json.dumps({"rc": int(rc), **outcomes.n,
+                  "launches": {w.__name__: w.launches for w in wrappers},
+                  "worst": getattr(tests, "WORST", None),
+                  "reference_modules": sorted(
+                      m for m in sys.modules if m.split(".")[0] == "repro")}))
+"""
+
+
+def conformance_phase():
+    """Step 35: `CONFORMANCE` in a subprocess.  Every test must pass and none
+    may skip; a failure, a skip or the time limit raises.  Returns the
+    record: passed, seconds, launches and worst error per kernel."""
+    log = os.path.join(ROOT, "build", "conformance.log")
+    os.makedirs(os.path.dirname(log), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", CONFORMANCE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=CONFORMANCE_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    with open(log, "w") as f:
+        f.write(out.stdout + out.stderr)
+    tail = "\n".join((out.stdout + out.stderr).splitlines()[-40:])
+    assert out.returncode == 0, f"step 35's process exited {out.returncode}:\n{tail}"
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["rc"] == 0 and summary["failed"] == 0, f"step 35 failed:\n{tail}"
+    assert summary["skipped"] == 0, \
+        f"step 35: {summary['skipped']} tests skipped (the card was not seen):\n{tail}"
+    assert summary["passed"] > 0, f"step 35 ran no test:\n{tail}"
+    assert not summary["reference_modules"], summary["reference_modules"]
+    print(f"step 35, conformance (tests/test_torch_cuda.py -m cuda): "
+          f"{summary['passed']} passed, 0 failed, 0 skipped in {seconds:.1f} s; "
+          f"launches {json.dumps(summary['launches'])}; worst |kernel - twin| / "
+          f"max|twin| {json.dumps(summary['worst'])}", flush=True)
+    return {"passed": summary["passed"], "seconds": seconds,
+            "launches": summary["launches"], "worst": summary["worst"]}
 
 
 if __name__ == "__main__":

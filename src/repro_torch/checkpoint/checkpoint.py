@@ -99,9 +99,9 @@ def save_checkpoint(
     directory: str,
     step: int,
     tree,
-    meta: dict | None = None,
     host_id: int = 0,
     num_hosts: int = 1,
+    meta: dict | None = None,
 ) -> str:
     """Write this host's `tree` for `step`, atomically.
 
@@ -209,8 +209,8 @@ class CheckpointManager:
 
         def work():
             try:
-                save_checkpoint(self.directory, step, host_tree, meta, self.host_id,
-                                self.num_hosts)
+                save_checkpoint(self.directory, step, host_tree, host_id=self.host_id,
+                                num_hosts=self.num_hosts, meta=meta)
                 if self.host_id == 0:
                     self._gc()
             except Exception as e:  # raised again by wait(), in the caller's thread

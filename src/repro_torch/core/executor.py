@@ -159,16 +159,19 @@ def _to_device(b, device: torch.device) -> torch.Tensor:
     return b.to(device=device, dtype=torch.float32)
 
 
-def build_solve_cols(prog: Program, width: int, device: torch.device):
+def build_solve_cols(prog: Program, width: int, device=None):
     """`solve(b[n, width]) -> x[n, width]` over the instruction stream.
 
     The counterpart of the JAX package's ``lax.scan`` executor: the
     decoded instruction planes and gathered values are staged on
-    ``device`` once, and each call runs an eager per-cycle loop whose state
-    is ``(x, feedback, psum_rf)``, each with a trailing batch axis of
-    ``width`` RHS columns.  Row ``x[n]`` absorbs the scatter of non-FINAL
-    lanes.
+    ``device`` (None: the CUDA device) once, and each call runs an eager
+    per-cycle loop whose state is ``(x, feedback, psum_rf)``, each with a
+    trailing batch axis of ``width`` RHS columns.  Row ``x[n]`` absorbs the
+    scatter of non-FINAL lanes.
     """
+    from repro_torch.kernels.common import resolve_device
+
+    device = resolve_device(device)
     n, p = prog.n, prog.num_cus
     op, si, ct, sl = (torch.from_numpy(f.astype(np.int64)).to(device)
                       for f in decode_instructions(prog.instr, prog.planes))

@@ -65,6 +65,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prefill-len", type=int, default=64)
     ap.add_argument("--decode-steps", type=int, default=32)
     ap.add_argument("--max-seq", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="accepted as the reference does; decoding is greedy")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     return ap.parse_args(argv)

@@ -54,6 +54,7 @@ __all__ = [
     "shard",
     "pad_local",
     "rms_norm",
+    "layer_norm",
     "gain",
     "Linear",
     "linear",
@@ -123,6 +124,13 @@ def rms_norm(x, gamma, eps: float = 1e-5):
     xf = x.float()
     xf = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
     return (xf * gamma.float()).to(x.dtype)
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
 # ---------------------------------------------------------------- linear

@@ -17,10 +17,23 @@ parameter's dtype and applies the decay as a separate step.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 __all__ = ["OptState", "adamw_init", "adamw_update"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    """AdamW's hyperparameters, the reference's fields and defaults."""
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+
 
 OptState = dict  # {"m": {name: tensor}, "v": {name: tensor}, "step": int}
 

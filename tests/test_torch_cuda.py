@@ -37,26 +37,46 @@ with its launch counts; one train step of reduced smollm and granite-moe
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings, strategies as st
 
 import dataclasses
 
 from repro_torch.configs import get_config
 from repro_torch.core import api
 from repro_torch.core.csr import serial_solve
+from repro_torch.core.errors import PlacementInfeasibleError
 from repro_torch.core.executor import _psum_slots
 from repro_torch.core.program import AccelConfig
 from repro_torch.core.schedule import compile_program
 from repro_torch.kernels.flash_attention.kernel import (
+    check_kernel_limits as attn_limits,
     flash_attention_cuda,
     flash_attention_plain,
 )
 from repro_torch.kernels.ssd_scan.ops import MIN_LOG_DECAY
-from repro_torch.kernels.ssd_scan.kernel import chunked_scan_cuda, chunked_scan_plain
+from repro_torch.kernels.ssd_scan.kernel import (
+    check_kernel_limits as scan_limits,
+    chunked_scan_cuda,
+    chunked_scan_plain,
+)
 from repro_torch.kernels.sptrsv import kernel, ops
 from repro_torch.models import RuntimeFlags, init_params, prefill
 
+from torch_strategies import accel_config, random_triangular, row_sweep
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 EXACT = dict(rtol=0, atol=0)
+# each kernel's largest |kernel - twin| / max|twin| over the comparisons run
+# in this process (chip_smoke.py step 35 reports it)
+WORST = dict.fromkeys(("sptrsv_cuda", "sptrsv_cuda_blocked", "chunked_scan_cuda",
+                       "flash_attention_cuda"), 0.0)
+
+
+def _note(wrapper, got, want):
+    if want.numel():
+        scale = want.float().abs().max().item() or 1.0
+        err = (got.float() - want.float()).abs().max().item() / scale
+        WORST[wrapper.__name__] = max(WORST[wrapper.__name__], err)
 
 
 @pytest.fixture
@@ -88,6 +108,7 @@ def _check_launch(wrapper, fits, run, want, n):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     torch.testing.assert_close(got[:n], want[:n], **EXACT)
+    _note(wrapper, got[:n], want[:n])
 
 
 def _fits(prog, cols, x_words):
@@ -463,6 +484,25 @@ def _scaled_close(got, want, frac):
     assert err <= frac * want.float().abs().max().item(), err
 
 
+def _scan_close(y, yp, sf, sfp):
+    """The scan's output and final state within 2e-4 of the twin's largest
+    value (f32, sums in another order)."""
+    for got, want in ((y, yp), (sf, sfp)):
+        if want.numel():
+            _scaled_close(got, want, 2e-4)
+        _note(chunked_scan_cuda, got, want)
+
+
+def _attention_close(o, op):
+    """f32 within 2e-5; bf16 within 2e-2 of the twin's largest value (P is
+    rounded to bf16 for the PV product)."""
+    if o.dtype == torch.float32:
+        torch.testing.assert_close(o, op, rtol=2e-5, atol=2e-5)
+    else:
+        _scaled_close(o, op, 2e-2)
+    _note(flash_attention_cuda, o, op)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,seq,kdim,vdim", [
     (3, 128, 32, 48),     # V not a multiple of the 64-column tile
@@ -481,8 +521,7 @@ def test_scan_kernel_matches_plain(cuda, bh, seq, kdim, vdim, inclusive):
     torch.cuda.synchronize()
     assert chunked_scan_cuda.launches == before + 1
     yp, sfp = chunked_scan_plain(q, k, v, w, s0, inclusive=inclusive)
-    _scaled_close(y, yp, 2e-4)
-    _scaled_close(sf, sfp, 2e-4)
+    _scan_close(y, yp, sf, sfp)
 
 
 @pytest.mark.cuda
@@ -499,10 +538,7 @@ def test_flash_kernel_matches_plain(cuda, d, causal, dtype):
         torch.cuda.synchronize()
         assert flash_attention_cuda.launches == before + 1 and o.dtype == dtype
         op = flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal)
-        if dtype == torch.float32:
-            torch.testing.assert_close(o, op, rtol=2e-5, atol=2e-5)
-        else:
-            _scaled_close(o, op, 2e-2)
+        _attention_close(o, op)
 
 
 def _scan_inputs(cuda, bh, seq, kdim, vdim, w=None):
@@ -526,8 +562,7 @@ def test_scan_tf32x3_kernel_edges(cuda, seq, kdim, vdim, inclusive):
     torch.cuda.synchronize()
     assert chunked_scan_cuda.launches == before + 1
     yp, sfp = chunked_scan_plain(q, k, v, w, s0, inclusive=inclusive)
-    _scaled_close(y, yp, 2e-4)
-    _scaled_close(sf, sfp, 2e-4)
+    _scan_close(y, yp, sf, sfp)
 
 
 @pytest.mark.cuda
@@ -541,8 +576,7 @@ def test_scan_kernel_at_the_decay_clamp_is_finite(cuda, inclusive):
     y, sf = chunked_scan_cuda(q, k, v, w, s0, inclusive=inclusive)
     assert torch.isfinite(y).all() and torch.isfinite(sf).all()
     yp, sfp = chunked_scan_plain(q, k, v, w, s0, inclusive=inclusive)
-    _scaled_close(y, yp, 2e-4)
-    _scaled_close(sf, sfp, 2e-4)
+    _scan_close(y, yp, sf, sfp)
 
 
 @pytest.mark.cuda
@@ -562,7 +596,7 @@ def test_flash_mma_kernel_edges(cuda, d, bh, lq, lk, causal):
     o = flash_attention_cuda(q, k, v, scale=d ** -0.5, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1 and o.dtype == torch.bfloat16
-    _scaled_close(o, flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal), 2e-2)
+    _attention_close(o, flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal))
 
 
 @pytest.mark.cuda
@@ -604,10 +638,7 @@ def test_flash_kernel_on_the_families_shapes(cuda, bh, lq, lk, d, causal, dtype)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1 and o.dtype == dtype
     op = flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal)
-    if dtype == torch.float32:
-        torch.testing.assert_close(o, op, rtol=2e-5, atol=2e-5)
-    else:
-        _scaled_close(o, op, 2e-2)
+    _attention_close(o, op)
 
 
 @pytest.mark.cuda
@@ -619,8 +650,7 @@ def test_scan_kernel_exclusive_at_the_rwkv6_shape(cuda):
     torch.cuda.synchronize()
     assert chunked_scan_cuda.launches == before + 1
     yp, sfp = chunked_scan_plain(q, k, v, w, s0, inclusive=False)
-    _scaled_close(y, yp, 2e-4)
-    _scaled_close(sf, sfp, 2e-4)
+    _scan_close(y, yp, sf, sfp)
 
 
 @pytest.mark.cuda
@@ -719,3 +749,149 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
     assert got["lr"] == want["lr"]
     if cfg.family == "moe":
         assert float(got["aux"]) > 0
+
+
+# -------------------------------------------------- the reference's random programs
+CARD_EXAMPLES = settings(max_examples=40, deadline=None, derandomize=True, database=None,
+                         suppress_health_check=[HealthCheck.function_scoped_fixture,
+                                                HealthCheck.too_slow])
+
+
+def _once(wrapper, run):
+    """``run()``, which must launch ``wrapper``'s kernel exactly once."""
+    before = wrapper.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    return out
+
+
+def _refused(wrapper, run, match):
+    before = wrapper.launches
+    with pytest.raises(ValueError, match=match):
+        run()
+    assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+@CARD_EXAMPLES
+@given(random_triangular(), accel_config(), st.sampled_from([1, 2]),
+       st.sampled_from([1, 7, 128]), st.integers(0, 1000))
+def test_random_programs_on_card(cuda, mat, cfg, planes, cpb, bseed):
+    """The JAX package's property-test programs (random lower triangles
+    under random configs, `torch_strategies`) compiled by the port and
+    solved at B = 1, 5, 16: the resident kernel with x in shared and in
+    device memory, at every columns-per-CTA the width takes (one it does
+    not divide is refused), and the blocked kernel on `row_sweep`'s window,
+    each bit for bit its plain twin on the same CUDA tensors and within 1e-5
+    of the float64 serial solve, or refused before launching where the
+    CTA's shared memory would pass 227 KB (`_check_launch`); the
+    forced-blocked solver where `ops.plan_window` plans a window, its
+    refusal where it does not."""
+    prog = compile_program(mat, cfg, planes=planes)
+    n, slots = prog.n, _psum_slots(prog)
+    sweep = row_sweep(prog, cpb)
+    plan = ops.plan_window(prog, cpb)
+    rng = np.random.default_rng(bseed)
+    for nb in (1, 5, 16):
+        bmat = rng.standard_normal((n, nb)).astype(np.float32)
+        want = np.stack([serial_solve(mat, bmat[:, i].astype(np.float64))
+                         for i in range(nb)], 1)
+        tol = dict(rtol=1e-5, atol=1e-5 * np.abs(want).max())
+        cols = [c for c in range(1, kernel.max_cols_per_cta(prog.num_cus) + 1) if nb % c == 0]
+        instr, values, b = _staged(prog, cpb, n + 1, nb, 0, cuda)
+        b[:n] = torch.from_numpy(bmat).to(cuda)
+        twin = kernel.sptrsv_plain(instr, values, b, num_slots=slots)
+        np.testing.assert_allclose(twin[:n].cpu().numpy(), want, **tol)
+        for x_in_smem in (True, False):
+            for c in cols:
+                _check_launch(
+                    kernel.sptrsv_cuda, _fits(prog, c, n + 1 if x_in_smem else 0),
+                    lambda: kernel.sptrsv_cuda(instr, values, b, num_slots=slots,
+                                               x_in_smem=x_in_smem, cols_per_cta=c),
+                    twin, n)
+        if nb == 5:
+            _refused(kernel.sptrsv_cuda, lambda: kernel.sptrsv_cuda(
+                instr, values, b, num_slots=slots, cols_per_cta=2), "must divide")
+        if sweep is not None:
+            window, stride, n_hbm = sweep
+            instr, values, bb = _staged(prog, cpb, n_hbm, nb, 0, cuda)
+            bb.zero_()
+            bb[:n] = b[:n]
+            kw = dict(window=window, stride=stride, cycles_per_block=cpb, num_slots=slots)
+            twin = kernel.sptrsv_blocked_plain(instr, values, bb, **kw)
+            for c in (cols[0], cols[-1]):
+                _check_launch(
+                    kernel.sptrsv_cuda_blocked,
+                    _fits(prog, c, kernel.ring_rows(window) + stride),
+                    lambda: kernel.sptrsv_cuda_blocked(instr, values, bb, cols_per_cta=c,
+                                                       **kw),
+                    twin, n)
+            np.testing.assert_allclose(twin[:n].cpu().numpy(), want, **tol)
+        if not plan.feasible:
+            with pytest.raises(PlacementInfeasibleError):
+                ops.build_solver_cols(prog, nb, placement="blocked",
+                                      cycles_per_block=cpb, device=cuda)
+            continue
+        solver = ops.build_solver_cols(prog, nb, placement="blocked",
+                                       cycles_per_block=cpb, device=cuda)
+        x = _once(kernel.sptrsv_cuda_blocked, lambda: solver(b[:n]))
+        np.testing.assert_allclose(x.cpu().numpy(), want, **tol)
+
+
+ATTENTION_D = {"float32": [16, 48, 80, 128, 160], "bfloat16": [16, 64, 128, 40]}
+
+
+@pytest.mark.cuda
+@CARD_EXAMPLES
+@given(st.sampled_from([1, 63, 64, 65, 333]), st.sampled_from([1, 63, 64, 65, 333]),
+       st.booleans(), st.sampled_from(sorted(ATTENTION_D)), st.data())
+def test_random_attention_shapes_on_card(cuda, lq, lk, causal, dtype, data):
+    """Attention at random Lq, Lk (each 1, 63, 64, 65 or 333), causal or
+    not (the reference's convention, c <= row, so against the twin and not
+    SDPA), f32 D 16-128 and bf16 D 16-128 at the file's tolerances; a width
+    `check_kernel_limits` refuses (f32 D 160, bf16 D 40) raises ValueError
+    and launches nothing."""
+    d = data.draw(st.sampled_from(ATTENTION_D[dtype]))
+    bh = data.draw(st.integers(1, 6))
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(lq * 1000 + lk + d)
+    q, k, v = (torch.randn((bh, n, d), generator=g, device=cuda).to(dt)
+               for n in (lq, lk, lk))
+    run = lambda: flash_attention_cuda(q, k, v, scale=d ** -0.5, causal=causal)
+    try:
+        attn_limits(bh, lq, lk, d, dt)
+    except ValueError:
+        _refused(flash_attention_cuda, run, "takes D")
+        return
+    o = _once(flash_attention_cuda, run)
+    assert o.dtype == dt and o.shape == q.shape
+    op = flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal)
+    _attention_close(o, op)
+
+
+@pytest.mark.cuda
+@CARD_EXAMPLES
+@given(st.sampled_from([0, 1, 63, 64, 65, 777]), st.sampled_from([4, 32, 64, 80]),
+       st.sampled_from([4, 48, 200, 50]), st.booleans(), st.booleans(),
+       st.integers(1, 4))
+def test_random_scan_shapes_on_card(cuda, seq, kdim, vdim, inclusive, clamped, bh):
+    """The scan at random L (0, 1, 63, 64, 65, 777), K (4, 32, 64) and V
+    (4, 48, 200), both inclusive forms, w random or at `MIN_LOG_DECAY`
+    throughout, at the file's 2e-4 of the largest value; L = 0 returns s0
+    and an empty y; K 80 and V 50 are refused (ValueError, no launch)."""
+    w = torch.full((bh, seq, kdim), MIN_LOG_DECAY, device=cuda) if clamped else None
+    q, k, v, w, s0 = _scan_inputs(cuda, bh, seq, kdim, vdim, w)
+    run = lambda: chunked_scan_cuda(q, k, v, w, s0, inclusive=inclusive)
+    try:
+        scan_limits(bh, seq, kdim, vdim)
+    except ValueError:
+        _refused(chunked_scan_cuda, run, "the kernel takes")
+        return
+    y, sf = _once(chunked_scan_cuda, run)
+    assert y.shape == (bh, seq, vdim) and sf.shape == s0.shape
+    assert torch.isfinite(y).all() and torch.isfinite(sf).all()
+    yp, sfp = chunked_scan_plain(q, k, v, w, s0, inclusive=inclusive)
+    if seq == 0:
+        torch.testing.assert_close(sf, s0, **EXACT)
+    _scan_close(y, yp, sf, sfp)

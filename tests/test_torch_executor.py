@@ -83,6 +83,22 @@ def test_torch_executor_matches_reference(progs, B):
         assert np.abs(one - got[:, i]).max() / max(np.abs(one).max(), 1e-12) <= 1e-5
 
 
+def test_build_solve_cols_takes_the_reference_call(progs):
+    """``build_solve_cols(prog, width)``, the reference's call, builds on the
+    default device (CUDA, raising without one); on the CPU its columns are
+    the reference's ``lax.scan`` executor's within 1e-5."""
+    from repro.core.executor import build_solve_cols as ref_build_solve_cols
+
+    ref, prog = progs
+    bmat = np.random.default_rng(4).standard_normal((prog.n, 8)).astype(np.float32)
+    want = np.asarray(ref_build_solve_cols(ref, 8)(bmat))
+    got = executor.build_solve_cols(prog, 8, CPU)(torch.from_numpy(bmat)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            executor.build_solve_cols(prog, 8)
+
+
 @pytest.mark.parametrize("name", ["band_cz", "ckt_rajat04", "hub_small"])
 @pytest.mark.parametrize("planes", [1, 2])
 def test_all_executors_parity_both_regimes(name, planes):

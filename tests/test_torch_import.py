@@ -5,6 +5,7 @@ CUDA, so a machine without CUDA raises instead of running on the CPU.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -19,7 +20,9 @@ ENTRY_POINTS = [REPO / "examples" / f"torch_{name}.py"
                 for name in ("ssm_as_sptrsv", "serve_batch", "train_lm")] + [
     REPO / "scripts" / "torch_lint_program.py"]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py"] + ENTRY_POINTS
+    REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py",
+    REPO / "tests" / "test_torch_cuda.py", REPO / "tests" / "torch_strategies.py",
+] + ENTRY_POINTS
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -55,9 +58,9 @@ def test_import_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
-def _imported_roots(path: Path) -> set[str]:
+def _imported_roots(source: str) -> set[str]:
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
@@ -67,7 +70,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
-    bad = _imported_roots(path) & set(FORBIDDEN)
+    bad = _imported_roots(path.read_text()) & set(FORBIDDEN)
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
@@ -81,7 +84,40 @@ def test_port_files_found():
             "pipeline.py", "elastic.py", "fault_tolerance.py", "checkpoint.py",
             "steps.py", "train.py", "sharding.py", "mesh.py", "shapes.py", "dryrun.py",
             "hlo_analysis.py", "roofline.py", "torch_ssm_as_sptrsv.py",
-            "torch_serve_batch.py", "torch_train_lm.py", "torch_lint_program.py"} <= names
+            "torch_serve_batch.py", "torch_train_lm.py", "torch_lint_program.py",
+            "test_torch_cuda.py", "torch_strategies.py"} <= names
+
+
+def _smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_conformance_step_needs_the_card_and_no_reference(monkeypatch):
+    """`chip_smoke.py` step 35's process imports neither jax nor `repro`
+    (its source, and what it loaded while pytest ran the card's tests), and
+    a run in which the tests skip, as they do here, fails the step."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the tests run instead of skipping")
+    smoke = _smoke()
+    assert not _imported_roots(smoke.CONFORMANCE) & set(FORBIDDEN)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", smoke.CONFORMANCE], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["reference_modules"] == []
+    assert (summary["rc"], summary["passed"], summary["failed"]) == (0, 0, 0)
+    assert summary["skipped"] > 100
+    assert set(summary["launches"].values()) == {0}
+    assert set(summary["worst"]) == set(summary["launches"])
+    monkeypatch.setattr(smoke.subprocess, "run", lambda *a, **kw: out)
+    with pytest.raises(AssertionError, match="skipped"):
+        smoke.conformance_phase()
 
 
 def test_default_device_is_cuda_and_raises_without_it():

@@ -181,3 +181,26 @@ def test_serve_main_on_cpu():
     assert result["launches"] == {
         phase: {"chunked_scan_cuda": 0, "flash_attention_cuda": 0}
         for phase in ("prefill", "decode")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norms_equal_reference(dtype):
+    """`rms_norm` and `layer_norm` on the same inputs, within 1e-6 (f32) or
+    one bf16 rounding (2^-8) of the largest value."""
+    from repro.models.layers import layer_norm as jlayer_norm
+    from repro.models.layers import rms_norm as jrms_norm
+    from repro_torch.models.layers import layer_norm, rms_norm
+
+    rng = np.random.default_rng(3)
+    x, gamma, beta = (rng.standard_normal(s).astype(np.float32) * 3
+                      for s in ((4, 5, 48), (48,), (48,)))
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    pairs = ((rms_norm(tx, torch.from_numpy(gamma)), jrms_norm(jx, jnp.asarray(gamma))),
+             (layer_norm(tx, torch.from_numpy(gamma), torch.from_numpy(beta)),
+              jlayer_norm(jx, jnp.asarray(gamma), jnp.asarray(beta))))
+    for got, want in pairs:
+        assert got.dtype == tx.dtype
+        want = np.asarray(want.astype(jnp.float32))
+        atol = (1e-6 if dtype == "float32" else 2 ** -8) * np.abs(want).max()
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)

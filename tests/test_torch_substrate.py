@@ -11,6 +11,7 @@ runs it on the port alone.
 """
 
 import dataclasses
+import json
 import os
 import re
 import zipfile
@@ -175,6 +176,16 @@ def test_adamw_three_updates_equal_reference(dtype):
                                    rtol=rtol, atol=1e-7)
 
 
+def test_adamw_config_has_the_reference_fields():
+    from repro.optim.adamw import AdamWConfig as JConfig
+    from repro_torch.optim.adamw import AdamWConfig
+
+    assert dataclasses.asdict(AdamWConfig()) == dataclasses.asdict(JConfig())
+    assert AdamWConfig.__dataclass_params__.frozen
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        AdamWConfig().lr = 1.0
+
+
 def test_adamw_minimizes_quadratic():
     w = torch.nn.Parameter(torch.tensor([5.0, -3.0]))
     model = torch.nn.Module()
@@ -286,6 +297,37 @@ def test_checkpoint_roundtrip_and_layout(tmp_path):
     torch.testing.assert_close(restored["params"]["w"], tree["params"]["w"])
     assert isinstance(restored["opt"]["m"], np.ndarray)
     assert int(restored["opt"]["step"]) == 5 and isinstance(restored["pair"], tuple)
+
+
+def test_save_checkpoint_in_the_reference_argument_order(tmp_path):
+    """``save_checkpoint(d, 1, tree, 0, 1, {"loss": 1.0})``, positional in the
+    reference's order (host_id, num_hosts, meta), writes the same step
+    directory in both packages: the same files, ``meta.json`` and arrays."""
+    tree = _seeded_tree(7)
+    save_checkpoint(str(tmp_path / "port"), 1, jax.tree.map(torch.from_numpy, tree),
+                    0, 1, {"loss": 1.0})
+    jckpt.save_checkpoint(str(tmp_path / "ref"), 1, jax.tree.map(jnp.asarray, tree),
+                          0, 1, {"loss": 1.0})
+    port, ref = (tmp_path / side / "step_00000001" for side in ("port", "ref"))
+    assert sorted(os.listdir(port)) == sorted(os.listdir(ref)) == [
+        "COMMITTED", "host_0.npz", "meta.json"]
+    for name in ("COMMITTED", "meta.json"):
+        assert (port / name).read_text() == (ref / name).read_text()
+    got, want = np.load(port / "host_0.npz"), np.load(ref / "host_0.npz")
+    assert sorted(got.files) == sorted(want.files)
+    for key in want.files:
+        assert got[key].dtype == want[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_checkpoint_manager_passes_meta_by_keyword(tmp_path):
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(4, {"w": torch.full((3,), 4.0)}, meta={"loss": 2.5})
+    mgr.wait()
+    with open(tmp_path / "step_00000004" / "meta.json") as f:
+        assert json.load(f) == {"step": 4, "loss": 2.5}
+    restored, step = mgr.restore({"w": torch.zeros(3)})
+    assert step == 4 and restored["w"].tolist() == [4.0] * 3
 
 
 def test_checkpoint_ignores_uncommitted(tmp_path):
