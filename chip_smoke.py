@@ -195,7 +195,12 @@ on each rank's local rows:
      on a fake process group of 256 ranks (meta tensors, its own process):
      per-device argument bytes against the card's memory (they must fit),
      per-device dot_flops, collective bytes and the roofline's terms at the
-     H100's datasheet peaks.
+     H100's datasheet peaks; the dot_flops within DRYRUN_FLOPS_REL of the
+     reference's dry run of the same cell, the collective bytes at most
+     DRYRUN_COLL_RATIO times its, the largest collective at most 2^31 B
+     (REF_DRYRUN, counted on the CPU); and at one layer, every gradient
+     placed as its parameter on "model" after the backward pass, the clip
+     and AdamW moving at most 0-d sums (GRAD_CHECK).
 
 Then the user entry points outside src/, each called as a user calls it
 (its main(argv), on the card; counters set to 0 before it, read after):
@@ -2045,6 +2050,55 @@ assert row["coll/all-reduce"] == m * n * 4, row
 print("count check", rep["dot_flops"], col["dot_flops"], row["dot_flops"],
       row["coll/all-reduce"])
 """
+# The reference's per-device counts of DRYRUN_CELL (36 layers), from its own
+# dry run on the CPU: jax.make_mesh((16, 16), ("data", "model"),
+# axis_types=(AxisType.Auto,) * 2) over 256 host devices
+# (XLA_FLAGS=--xla_force_host_platform_device_count=256), repro.launch.steps.
+# build_cell, jax.jit(fn, in_shardings, out_shardings).lower(*args).compile(),
+# repro.launch.hlo_analysis.analyze_hlo of the compiled text; the largest
+# collective is the largest collective result shape in that text
+# (tests/test_torch_mesh_parity.py's REFERENCE program at n_layers=36).  They
+# count a compiled program's work (trace count, CPU), not a time: the card
+# machine has no jax, so they are written here.
+REF_DRYRUN = {"dot_flops": 2.8449863368704e14, "collective_bytes": 3.71785089064e11,
+              "largest_collective_bytes": 2 ** 31}
+DRYRUN_FLOPS_REL, DRYRUN_COLL_RATIO, DRYRUN_LARGEST = 0.05, 1.10, 2 ** 31
+# DRYRUN_CELL's model at one layer on the same fake world of 256: after the
+# backward pass every gradient is placed as its parameter on "model" with its
+# local shape, and the clip and AdamW on the reduced gradients move at most
+# 0-d sums
+GRAD_CHECK = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import dp_axes, grads_off_placement, reduce_grads
+from repro_torch.launch import dryrun, hlo_analysis
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.shapes import SHAPES
+from repro_torch.launch.steps import build_cell
+from repro_torch.models import RuntimeFlags, train_forward
+from repro_torch.optim import adamw_update, clip_by_global_norm
+arch, shape_name = sys.argv[1], sys.argv[2]
+dryrun.fake_world(256)
+mesh = make_production_mesh(device_type="cpu")
+cfg = dataclasses.replace(get_config(arch), n_layers=1)
+flags = RuntimeFlags(use_kernels=False, remat=True, mesh=mesh, dp=dp_axes(mesh))
+_, (model, opt, batch), _, _ = build_cell(cfg, SHAPES[shape_name], mesh, flags)
+model.requires_grad_(True)
+loss, _ = train_forward(model, batch["tokens"], batch["labels"], cfg, flags)
+loss.backward()
+off = {k: [str(p) for p in v] for k, v in grads_off_placement(model).items()}
+assert off == {}, off
+grads = sum(p.grad is not None for p in model.parameters())
+reduce_grads(model)
+clip = hlo_analysis.analyze_step(
+    lambda: clip_by_global_norm([p.grad for p in model.parameters()], 1.0))
+adamw = hlo_analysis.analyze_step(lambda: adamw_update(model, opt, 1e-3))
+assert clip["largest_collective_bytes"] <= 4 and adamw.collective_bytes == 0, (clip, adamw)
+print(json.dumps({"gradients": grads, "clip_largest_collective_bytes":
+                  clip["largest_collective_bytes"],
+                  "adamw_collective_bytes": adamw.collective_bytes}))
+"""
 
 
 def _mesh_serve(mesh, arch, prompt, want_prefill, want_decode, smi):
@@ -2159,7 +2213,8 @@ def _mesh_train(mesh, ckpt_dir, smi):
 def _dryrun(smi):
     """Step 29 (host only): launch/dryrun.py for DRYRUN_CELL on a fake
     process group of 256 ranks, in a process of its own; the per-device
-    arguments must fit the card's memory."""
+    arguments must fit the card's memory, and the counts must divide the
+    work as the reference's dry run does (REF_DRYRUN); then GRAD_CHECK."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2202,8 +2257,31 @@ def _dryrun(smi):
           f"{row['roofline_fraction']:.4f}", flush=True)
     assert mem["argument_size_in_bytes"] < card, (mem, card)
     assert rec["hlo"]["dot_flops"] > 0 and rec["devices"] == 256
+    got = {"dot_flops": rec["hlo"]["dot_flops"], "collective_bytes": rec["collective_bytes"],
+           "largest_collective_bytes": rec["hlo"]["largest_collective_bytes"]}
+    ratio = {k: got[k] / REF_DRYRUN[k] for k in got}
+    print(f"step 29 against the reference's dry run of the same cell (XLA SPMD on 256 "
+          f"host devices; trace count, CPU): dot_flops {got['dot_flops']:.6e} vs "
+          f"{REF_DRYRUN['dot_flops']:.6e} (x{ratio['dot_flops']:.4f}, limit "
+          f"1 +- {DRYRUN_FLOPS_REL}), collective bytes {got['collective_bytes']:.6e} vs "
+          f"{REF_DRYRUN['collective_bytes']:.6e} (x{ratio['collective_bytes']:.4f}, limit "
+          f"{DRYRUN_COLL_RATIO}), largest collective {got['largest_collective_bytes']:.0f} "
+          f"vs {REF_DRYRUN['largest_collective_bytes']} B (limit {DRYRUN_LARGEST})",
+          flush=True)
+    assert abs(ratio["dot_flops"] - 1) <= DRYRUN_FLOPS_REL, (got, REF_DRYRUN)
+    assert ratio["collective_bytes"] <= DRYRUN_COLL_RATIO, (got, REF_DRYRUN)
+    assert got["largest_collective_bytes"] <= DRYRUN_LARGEST, got
+    grad = subprocess.run([sys.executable, "-c", GRAD_CHECK, arch, shape], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=DRYRUN_TIMEOUT_S)
+    assert grad.returncode == 0, grad.stderr[-3000:]
+    grads = json.loads(grad.stdout.strip().splitlines()[-1])
+    print(f"step 29 {arch} at 1 layer on the same fake world: all {grads['gradients']} "
+          f"gradients placed as their parameters on \"model\" after the backward pass; "
+          f"clip's largest collective {grads['clip_largest_collective_bytes']:.0f} B, "
+          f"AdamW's collectives {grads['adamw_collective_bytes']:.0f} B", flush=True)
     return {"path": f"dry run {arch} x {shape} x {mesh}", "record": rec, "roofline": row,
-            "cell_s": cell_s, "card_bytes": card}
+            "cell_s": cell_s, "card_bytes": card, "reference": REF_DRYRUN,
+            "ratio_to_reference": ratio, "gradient_check": grads}
 
 
 def mesh_phase(smi):

@@ -6,11 +6,13 @@ Runs the rank programs of `tests/torch_mesh_workers.py` on a (2, 2)
 ("data", "model") mesh, 4 spawned processes per case: prefill and 4 greedy
 decode steps of every served family with ``use_kernels=True`` (the
 kernels' plain versions under `local_map`), and one train step (loss and
-every gradient leaf) of smollm-360m, rwkv6-1.6b and zamba2-2.7b, all on
-reduced configs in f32.  Each is held to the unsharded port as
+every gradient leaf) of the six families and of smollm-360m with 3 query
+heads (which the 2-way "model" axis does not divide), all on reduced
+configs in f32.  Each is held to the unsharded port as
 `tests/test_torch_mesh.py` holds it (logits and caches within 1e-5 of
 the largest value, loss within 1e-5 relative, each gradient leaf within
-1e-5 relative L2), but without JAX, so it runs wherever torch does: the
+1e-5 relative L2, every gradient placed as its parameter on "model" after
+the backward pass), but without JAX, so it runs wherever torch does: the
 point is to check DTensor's view rules on the installed torch (2.11
 refuses views that later versions accept).  Prints one line per case and
 a JSON summary; exits 1 if a case fails.  Writes under ``build/mesh_gloo``.
@@ -36,7 +38,11 @@ import torch_mesh_workers as workers  # noqa: E402
 WORLD, JOIN_S, REL = 4, 300, 1e-5
 SERVE = ("smollm-360m", "granite-moe-1b-a400m", "rwkv6-1.6b", "zamba2-2.7b",
          "whisper-base", "llama-3.2-vision-11b")
-TRAIN = ("smollm-360m", "rwkv6-1.6b", "zamba2-2.7b")
+# (arch, query and kv heads in place of the config's): the six families, and
+# 3 query heads that the 2-way "model" axis does not divide
+TRAIN = (("smollm-360m", None), ("granite-moe-1b-a400m", None), ("rwkv6-1.6b", None),
+         ("zamba2-2.7b", None), ("whisper-base", None), ("llama-3.2-vision-11b", None),
+         ("smollm-360m", (3, 1)))
 LR, WARMUP, TOTAL = 3e-3, 2, 10
 
 
@@ -96,16 +102,21 @@ def main() -> int:
         print(f"serve {arch}: mesh vs unsharded, worst error over max |value| "
               f"{err:.3e} (limit {REL}) {'ok' if good else 'FAIL'}, "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for arch in TRAIN:
+    for arch, heads in TRAIN:
         t0 = time.perf_counter()
-        errs = _train_err(_spawn(out, "train", LR, WARMUP, TOTAL, arch))
-        good = errs["loss_rel"] <= REL and errs["grad_rel_l2"] <= REL
+        name = arch if heads is None else f"{arch} heads {heads}"
+        res = _spawn(out, "train", LR, WARMUP, TOTAL, arch, heads)
+        errs = _train_err(res)
+        errs["off_placement"] = [str(n) for n in res["off_placement"]]
+        good = (errs["loss_rel"] <= REL and errs["grad_rel_l2"] <= REL
+                and not errs["off_placement"])
         ok &= good
-        summary[f"train {arch}"] = errs
-        print(f"train {arch}: loss relative difference {errs['loss_rel']:.3e}, worst "
+        summary[f"train {name}"] = errs
+        print(f"train {name}: loss relative difference {errs['loss_rel']:.3e}, worst "
               f"gradient leaf relative L2 {errs['grad_rel_l2']:.3e} over "
-              f"{errs['grad_leaves']} leaves (limit {REL}) {'ok' if good else 'FAIL'}, "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{errs['grad_leaves']} leaves (limit {REL}), gradients placed otherwise "
+              f"than their parameters on \"model\": {errs['off_placement'] or 'none'} "
+              f"{'ok' if good else 'FAIL'}, {time.perf_counter() - t0:.1f} s", flush=True)
     shutil.rmtree(out, ignore_errors=True)
     print(json.dumps(summary))
     return 0 if ok else 1

@@ -26,15 +26,37 @@ divide a dim falls back to replication, as in the reference.
 Every function takes a `DeviceMesh` or a `MeshShape` (axis names and sizes
 only, for planning without a process group).
 
-Views of DTensors.  torch 2.11 refuses a view that merges a split dim into
-the dim before it ("Attempted to flatten multiple dimensions"), in the
-forward pass and in the backward of a view that splits a dim; later
-versions redistribute by themselves.  The models therefore fold heads into
-the batch dim, and back, only through `fold_heads`, `unfold_heads`,
-`unflatten_rows`, `repeat_rows` and `split_heads`: each makes the merged
-dims whole first (`unshard`; `unshard_grad` for the gradient) and keeps
-the rows split over dp.  Without a mesh they are the plain views.  The multi-RHS column split
-of the reference's ``rhs_sharding`` is `repro_torch.core.shard.rhs_blocks`.
+Folds keep heads split.  Attention and the scan fold heads into the batch
+dim (``[B, L, H, D] -> [B*H, L, D]``).  Where "model" divides the heads
+(`heads_split`), each rank folds, attends or scans, and unfolds its own
+shard inside `local_map` (`models.layers._attention_local_heads`,
+`kernels.ssd_scan.ops._local_heads`): local views on plain tensors, so no
+global view merges a split dim and no head is gathered.  Each rank's rows
+come in its own order (its batch rows, then its heads), not the global
+b-major order; attention and the scan are row-wise and each unfold
+inverts its own fold, so nothing sees the difference.  Kv heads that
+"model" does not divide are gathered for the ranks' query heads; query
+heads that it does not divide fall back to the reference's fold
+priorities on global DTensors, through `fold_heads`, `unfold_heads`,
+`unflatten_rows`, `repeat_rows` and `split_heads`, which make the merged
+dims whole first (`unshard`; `unshard_grad` for the gradient), because
+torch 2.11 refuses a view that merges a split dim into the dim before it
+("Attempted to flatten multiple dimensions"), in the forward pass and in
+the backward of a view that splits a dim.  Without a mesh they are the
+plain views.
+
+Where gradients are reduced.  The input gradient of a column-parallel
+product is a partial sum over "model"; `reduce_grad` on the product's
+input sums it there once (Megatron's "f", where GSPMD reduces), so the
+residual stream's gradient stays whole on "model" and every row-parallel
+weight's gradient comes out split as the weight.  A parameter whole on
+"model" has its gradient made whole there as it accumulates
+(`distribute_params`).  After the backward pass `reduce_grads` reduces
+each gradient once over the data-parallel axes, to its parameter's
+placements, before the optimizer reads it; `grads_off_placement` lists
+the gradients that miss their parameter's placement on "model".  The
+multi-RHS column split of the reference's ``rhs_sharding`` is
+`repro_torch.core.shard.rhs_blocks`.
 """
 
 from __future__ import annotations
@@ -65,6 +87,16 @@ __all__ = [
     "full_tensor",
     "unshard",
     "unshard_grad",
+    "unshard_table",
+    "reduce_grad",
+    "reduce_grads",
+    "grads_off_placement",
+    "model_size",
+    "heads_split",
+    "partial_on",
+    "sum_over",
+    "max_over",
+    "gather_over",
     "split_heads",
     "fold_heads",
     "unflatten_rows",
@@ -211,20 +243,37 @@ def param_placements(mesh, model) -> dict[str, tuple]:
             for name, spec in param_specs(mesh, model).items()}
 
 
+def _whole_on_model(g):
+    """``g`` whole on "model": partial sums summed, a split gathered."""
+    names = g.device_mesh.mesh_dim_names
+    plc = [Replicate() if names[i] == "model" else p for i, p in enumerate(g.placements)]
+    return g if tuple(plc) == tuple(g.placements) else g.redistribute(g.device_mesh, plc)
+
+
 @torch.no_grad()
 def distribute_params(model, mesh):
     """Replace every parameter of ``model`` by a DTensor placed by
     `param_placements`.  Each rank holds the full values (the same seed on
-    every rank) and keeps its own shard; no data moves.  Returns ``model``."""
+    every rank) and keeps its own shard; no data moves.  Returns ``model``.
+
+    A parameter whole on "model" that meets an activation split there (a
+    token-shift mix before a column-parallel product, a gain or a skip on
+    split heads) gets its gradient from each rank in part; it is made whole
+    on "model" as it accumulates (one small collective per parameter), so
+    every gradient leaves the backward pass placed as its parameter there."""
     from torch import nn
     from torch.distributed.tensor import distribute_tensor
 
     plc = param_placements(mesh, model)
+    names = list(mesh_axes(mesh))
     for name, p in list(model.named_parameters()):
         mod_name, _, leaf = name.rpartition(".")
         mod = model.get_submodule(mod_name) if mod_name else model
         d = distribute_tensor(p.detach(), mesh, plc[name], src_data_rank=None)
-        setattr(mod, leaf, nn.Parameter(d, requires_grad=p.requires_grad))
+        param = nn.Parameter(d, requires_grad=True)
+        if "model" in names and plc[name][names.index("model")].is_replicate():
+            param.register_hook(_whole_on_model)   # kept while training is off
+        setattr(mod, leaf, param.requires_grad_(p.requires_grad))
     return model
 
 
@@ -384,6 +433,150 @@ def unshard_grad(t, *dims: int):
     if isinstance(t, DTensor) and t.requires_grad:
         t.register_hook(lambda g: unshard(g, *dims))
     return t
+
+
+def _sum_partial(g, axes):
+    """``g`` with its partial sums over the mesh ``axes`` reduced there."""
+    names = g.device_mesh.mesh_dim_names
+    plc = [Replicate() if p.is_partial() and names[i] in axes else p
+           for i, p in enumerate(g.placements)]
+    return g if tuple(plc) == tuple(g.placements) else g.redistribute(g.device_mesh, plc)
+
+
+def reduce_grad(t):
+    """``t`` itself; in the backward pass its gradient, partial sums over
+    "model", is summed there (one all-reduce) before it flows on.  Put on
+    the input of a column-parallel product (its weight split over "model"
+    by columns): each rank's part of the input gradient comes from its own
+    columns.  This is Megatron's "f" operator, and where GSPMD reduces; the
+    residual stream's gradient then stays whole on "model", so every
+    row-parallel weight's gradient comes out split as the weight.  Without
+    a mesh it does nothing."""
+    if isinstance(t, DTensor) and t.requires_grad:
+        t.register_hook(lambda g: _sum_partial(g, ("model",)))
+    return t
+
+
+def grads_off_placement(model) -> dict[str, tuple]:
+    """``{name: (gradient placements, parameter placements)}`` of each
+    DTensor parameter whose gradient is placed otherwise, over "model" or
+    in its local shape: what `reduce_grad` should have prevented.  Partial
+    sums over the data-parallel axes are left for `reduce_grads`."""
+    out = {}
+    for name, p in model.named_parameters():
+        g = p.grad
+        if not isinstance(g, DTensor):
+            continue
+        names = p.device_mesh.mesh_dim_names
+        on_model = lambda plc: [q for i, q in enumerate(plc) if names[i] == "model"]
+        if (on_model(g.placements) != on_model(p.placements)
+                or g.to_local().shape != p.to_local().shape):
+            out[name] = (tuple(g.placements), tuple(p.placements))
+    return out
+
+
+@torch.no_grad()
+def reduce_grads(model) -> None:
+    """Redistribute each DTensor parameter's gradient to the parameter's
+    placements: the partial sums over the data-parallel axes reduced, once
+    per gradient, before the optimizer reads them (the reference's jitted
+    step hands AdamW gradients in the parameters' shardings)."""
+    for p in model.parameters():
+        g = p.grad
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+            p.grad = g.redistribute(p.device_mesh, p.placements)
+
+
+def model_size(mesh) -> int:
+    """The size of the "model" axis (1 without one)."""
+    return int(mesh_axes(mesh).get("model", 1))
+
+
+def heads_split(mesh, heads: int) -> bool:
+    """Whether ``heads`` split evenly over "model": each rank then folds,
+    and attends or scans, whole heads of its own shard."""
+    return heads % model_size(mesh) == 0
+
+
+def partial_on(plc, mesh, axes) -> tuple:
+    """``plc`` with ``Partial()`` in place of ``Replicate()`` on the mesh
+    ``axes``: the placements of a gradient each rank holds its own share
+    of (`local_map`'s ``in_grad_placements``)."""
+    from torch.distributed.tensor import Partial
+
+    names = list(mesh_axes(mesh))
+    return tuple(Partial() if names[i] in axes and p.is_replicate() else p
+                 for i, p in enumerate(plc))
+
+
+def _group_name(mesh, axis: str) -> str:
+    return mesh.get_group(mesh.mesh_dim_names.index(axis)).group_name
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce sum; the gradient passes unchanged, which is right where
+    every rank goes on with the sum the same way (a replicated result)."""
+
+    @staticmethod
+    def forward(ctx, t, group: str):
+        c10d = torch.ops._c10d_functional
+        return c10d.wait_tensor(c10d.all_reduce(t.contiguous(), "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherOver(torch.autograd.Function):
+    """All-gather on dim 0; the gradient is this rank's rows of the
+    gathered one, which is right where every rank goes on with the gathered
+    tensor the same way."""
+
+    @staticmethod
+    def forward(ctx, t, group: str, size: int, rank: int):
+        c10d = torch.ops._c10d_functional
+        ctx.rows, ctx.rank = t.shape[0], rank
+        return c10d.wait_tensor(c10d.all_gather_into_tensor(t.contiguous(), size, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None, None, None
+
+
+def sum_over(t, mesh, axis: str):
+    """Inside `local_map`: ``t`` summed over the mesh ``axis`` (one
+    all-reduce), its gradient passed on unchanged (the sum is used alike
+    on every rank)."""
+    return _SumOver.apply(t, _group_name(mesh, axis))
+
+
+@torch.no_grad()
+def max_over(t, mesh, axis: str):
+    """Inside `local_map`: the elementwise max of ``t`` over the mesh
+    ``axis`` (one all-reduce, no gradient)."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_reduce(t.contiguous(), "max", _group_name(mesh, axis)))
+
+
+def gather_over(t, mesh, axis: str):
+    """Inside `local_map`: every rank's ``t`` of the mesh ``axis``
+    concatenated on dim 0 (one all-gather); the gradient is this rank's
+    rows (the gathered tensor is used alike on every rank)."""
+    return _GatherOver.apply(t, _group_name(mesh, axis), mesh.size(
+        mesh.mesh_dim_names.index(axis)), mesh.get_local_rank(axis))
+
+
+def unshard_table(t, dim: int = 0):
+    """`unshard` for a table that a lookup reads: ``t`` whole on ``dim`` on
+    every rank.  The gradient, each rank's lookups, is cut back to ``t``'s
+    split (no data moves) before the gather's backward reduces it over the
+    data-parallel axes, so each rank reduces its shard, not the table."""
+    full = unshard(t, dim)
+    if full is not t and full.requires_grad:
+        plc = t.placements
+        full.register_hook(lambda g: g.redistribute(
+            g.device_mesh, [p if p.is_shard(dim) else q for p, q in zip(plc, g.placements)]))
+    return full
 
 
 def split_heads(t, h: int, whole: bool = False):

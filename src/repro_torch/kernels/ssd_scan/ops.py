@@ -7,12 +7,15 @@ tensors, merges batch and heads, and runs the hand-written kernel
 CPU tensors) or the plain chunked path (`chunked_scan_plain`).  Up to 4
 steps (decode) take a direct recurrence.
 
-On a mesh (``flags.mesh``) the inputs are DTensors: the merged ``[B*H, L,
-D]`` rows are placed as the reference places them (`merged_bh_constraint`),
+On a mesh (``flags.mesh``) the inputs are DTensors.  Where "model"
+divides the heads, each rank runs the whole function on its own heads
+(`_local_heads`): the fold, the scan, the decode steps and the u-bonus
+are local, and no head is gathered.  Otherwise the merged ``[B*H, L, D]``
+rows are placed as the reference places them (`merged_bh_constraint`),
 and the scan runs on each rank's local rows (`sharding.local_rows`), since
 every row is an independent recurrence (`flash_attention.ops.row_spec`:
-whole sequences per rank).  The decode steps and the u-bonus run as
-DTensor ops.
+whole sequences per rank); the decode steps and the u-bonus then run as
+DTensor ops on whole heads.
 
 Unlike the reference it takes no ``chunk``: both scan paths walk 64-row
 tiles (`kernel.TILE`) and zero-pad only the last one, so a sequence is
@@ -25,9 +28,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed.sharding import (
+    dp_size,
     fold_heads,
+    heads_split,
     like,
     local_rows,
+    partial_on,
+    placements,
     unflatten_rows,
     unfold_heads,
     unshard,
@@ -66,6 +73,9 @@ def linear_recurrence(q, k, v, log_decay, s0=None, u_bonus=None, *,
     The log-decay is clamped to ``[MIN_LOG_DECAY, 0]``.
     """
     b, seq, h, kdim = q.shape
+    if flags is not None and flags.mesh is not None and heads_split(flags.mesh, h):
+        return _local_heads(q, k, v, log_decay, s0, u_bonus, inclusive, use_kernels,
+                            flags)
     vdim = v.shape[-1]
     in_dtype, f32 = q.dtype, torch.float32
     w = log_decay.clamp(MIN_LOG_DECAY, 0.0)
@@ -106,3 +116,31 @@ def linear_recurrence(q, k, v, log_decay, s0=None, u_bonus=None, *,
     if u_bonus is not None:
         y = y + _bonus(q, k, v, u_bonus)
     return y.to(in_dtype), unflatten_rows(sf, flags, b)
+
+
+def _local_heads(q, k, v, log_decay, s0, u_bonus, inclusive, use_kernels, flags):
+    """`linear_recurrence` on each rank's own heads (`local_map`): the batch
+    over dp (when it divides), the heads over "model", each rank folding
+    and scanning its shard as a plain tensor.  Inputs whole on "model" are
+    cut there (no data moves); the u-bonus, a parameter replicated over dp,
+    takes each dp rank's share of its gradient."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = flags.mesh
+    bspec = tuple(flags.dp) if q.shape[0] % dp_size(mesh) == 0 else None
+    x_plc = placements(mesh, (bspec, None, "model", None))
+    s_plc = placements(mesh, (bspec, "model", None, None))
+    u_plc = placements(mesh, ("model", None))
+    u_grad = partial_on(u_plc, mesh, flags.dp if bspec else ())
+    opt = lambda t, plc: None if t is None else plc
+
+    def body(q, k, v, w, s0, u):
+        return linear_recurrence(q, k, v, w, s0, u, inclusive=inclusive,
+                                 use_kernels=use_kernels)
+
+    ins = (x_plc,) * 4 + (opt(s0, s_plc),)
+    return local_map(body, out_placements=(x_plc, s_plc),
+                     in_placements=ins + (opt(u_bonus, u_plc),),
+                     in_grad_placements=ins + (opt(u_bonus, u_grad),),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, log_decay, s0, u_bonus)

@@ -26,6 +26,7 @@ from repro_torch.distributed.sharding import (
     place,
     place_cache,
     placements,
+    reduce_grads,
 )
 from repro_torch.models import (
     RuntimeFlags,
@@ -82,7 +83,9 @@ def make_train_step(cfg, flags: RuntimeFlags, *, lr: float = 3e-4,
                     warmup: int = 100, total: int = 10000, clip_norm: float = 1.0):
     """``train_step(model, opt_state, batch) -> metrics``, the reference's
     order: loss and gradients, clip by global norm, the cosine schedule at
-    the step before AdamW increments it, AdamW.  ``batch``: ``tokens``,
+    the step before AdamW increments it, AdamW.  On a mesh each gradient is
+reduced once, to its parameter's placements (`sharding.reduce_grads`),
+before the clip reads it.  ``batch``: ``tokens``,
     ``labels`` ``[B, S]`` and the frontends' inputs, tensors on the model's
     device.  Metrics: ``loss``, ``nll``, ``aux``, ``ppl``, ``grad_norm``
     (0-d tensors) and ``lr`` (float).  The step switches the model's
@@ -98,6 +101,7 @@ def make_train_step(cfg, flags: RuntimeFlags, *, lr: float = 3e-4,
                                           flags, extra)
         with record_function(SPANS[1]):
             loss.backward()
+            reduce_grads(model)    # each gradient once, to its parameter's placements
         with record_function(SPANS[2]):
             gnorm = clip_by_global_norm([p.grad for p in model.parameters()], clip_norm)
         step_lr = cosine_warmup(opt_state["step"], lr, warmup, total)

@@ -39,9 +39,15 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed.sharding import (
+    dp_size,
     fold_heads,
+    heads_split,
     like,
+    model_size,
+    partial_on,
+    place,
     placements,
+    reduce_grad,
     spec_fits,
     split_heads,
     unfold_heads,
@@ -215,28 +221,115 @@ def attention(p: Attention, x, cfg, flags: RuntimeFlags, positions=None,
     x: ``[B, L, d]``; kv_x: ``[B, Lk, d]`` or None.  Returns ``(out [B, L,
     d], {"k", "v": [B, Lk, Hkv, D]})``, the (roped) keys and values for
     the decode cache.
+
+    On a mesh whose "model" axis divides the query heads, each rank folds,
+    ropes and attends its own heads (`_attention_local_heads`); otherwise
+    the folded tensors are placed by the reference's fold priorities
+    (`constrain_folded`), the heads made whole to fold them.
     """
     b, l, _ = x.shape
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    src = x if kv_x is None else kv_x
+    # the input gradients of the column-parallel wq, wk, wv are summed over
+    # "model" once (for self-attention x is src: one hook)
+    x = reduce_grad(x)
+    src = x if kv_x is None else reduce_grad(kv_x)
     lk = src.shape[1]
-    qf = constrain_folded(fold_heads(linear(p.wq, x), hq), flags, b * hq)
-    kf = constrain_folded(fold_heads(linear(p.wk, src), hkv), flags, b * hkv, is_kv=True)
-    vf = constrain_folded(fold_heads(linear(p.wv, src), hkv), flags, b * hkv, is_kv=True)
-    if use_rope and kv_x is None:
-        if positions is None:
-            positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
-        posf = lambda h: positions[:, None, :].expand(b, h, l).reshape(b * h, l)
-        qf = rope_folded(qf, posf(hq), cfg.rope_theta)
-        kf = rope_folded(kf, posf(hkv), cfg.rope_theta)
-    of = gqa_attention_folded(qf, kf, vf, batch=b, causal=causal and kv_x is None,
-                              use_kernels=flags.use_kernels,
-                              block_k=flags.attn_block_k, flags=flags)
-    o3 = unfold_heads(constrain_folded(of, flags, b * hq), flags, b).reshape(b, l, hq * hd)
+    q3, k3, v3 = linear(p.wq, x), linear(p.wk, src), linear(p.wv, src)
+    roped = use_rope and kv_x is None
+    causal = causal and kv_x is None
+    if flags.mesh is not None and heads_split(flags.mesh, hq):
+        o3, k4, v4 = _attention_local_heads(q3, k3, v3, positions, cfg, flags, causal,
+                                            roped)
+    elif flags.mesh is None:
+        o3, k4, v4 = _attend_heads(q3, k3, v3, positions, cfg, flags, causal, roped)
+    else:
+        qf = constrain_folded(fold_heads(q3, hq), flags, b * hq)
+        kf = constrain_folded(fold_heads(k3, hkv), flags, b * hkv, is_kv=True)
+        vf = constrain_folded(fold_heads(v3, hkv), flags, b * hkv, is_kv=True)
+        if roped:
+            qf, kf = _rope_rows(qf, kf, positions, b, l, cfg)
+        of = gqa_attention_folded(qf, kf, vf, batch=b, causal=causal,
+                                  use_kernels=flags.use_kernels,
+                                  block_k=flags.attn_block_k, flags=flags)
+        o3 = unfold_heads(constrain_folded(of, flags, b * hq), flags, b).reshape(
+            b, l, hq * hd)
+        k4, v4 = unfold_heads(kf, flags, b), unfold_heads(vf, flags, b)
     o3 = shard(o3, flags, "dp", None, "model")
     out = shard(linear(p.wo, o3), flags, "dp", None, None)
-    k4, v4 = unfold_heads(kf, flags, b), unfold_heads(vf, flags, b)
     return out, {"k": k4, "v": v4}
+
+
+def _rope_rows(qf, kf, positions, b: int, l: int, cfg):
+    """Rotary embedding of folded (b-major) queries and keys."""
+    hq, hkv = qf.shape[0] // b, kf.shape[0] // b
+    if positions is None:
+        positions = torch.arange(l, device=qf.device)[None, :].expand(b, l)
+    posf = lambda h: positions[:, None, :].expand(b, h, l).reshape(b * h, l)
+    return (rope_folded(qf, posf(hq), cfg.rope_theta),
+            rope_folded(kf, posf(hkv), cfg.rope_theta))
+
+
+def _attend_heads(q3, k3, v3, positions, cfg, flags, causal: bool, roped: bool,
+                  q_head0: int = 0):
+    """Attention of plain tensors: q3 ``[b, l, hq * D]`` (the query heads
+    ``[q_head0, q_head0 + hq)``), k3, v3 ``[b, lk, hkv * D]``: fold, rope,
+    attend (the kernel with ``flags.use_kernels``), unfold.  Returns ``(o3
+    [b, l, hq * D], k4, v4 [b, lk, hkv, D])``.  Where the query heads are a
+    part of all heads (a rank's share), k3 and v3 hold every kv head and
+    each query head reads its own (``cfg``'s grouping)."""
+    b, l, _ = q3.shape
+    hd = cfg.hd
+    hq, hkv = q3.shape[-1] // hd, k3.shape[-1] // hd
+    qf, kf, vf = fold_heads(q3, hq), fold_heads(k3, hkv), fold_heads(v3, hkv)
+    if roped:
+        qf, kf = _rope_rows(qf, kf, positions, b, l, cfg)
+    k4, v4 = (t.reshape(b, hkv, -1, hd).transpose(1, 2) for t in (kf, vf))
+    if hq * cfg.n_kv_heads != hkv * cfg.n_heads:
+        # the kv head of each of this rank's query heads, one row each
+        g = cfg.n_heads // cfg.n_kv_heads
+        idx = torch.div(torch.arange(q_head0, q_head0 + hq, device=kf.device), g,
+                        rounding_mode="floor")
+        kf, vf = (t.reshape(b, hkv, -1, hd)[:, idx].reshape(b * hq, -1, hd)
+                  for t in (kf, vf))
+    of = gqa_attention_folded(qf, kf, vf, batch=b, causal=causal,
+                              use_kernels=flags.use_kernels, block_k=flags.attn_block_k)
+    return of.reshape(b, hq, l, hd).transpose(1, 2).reshape(b, l, hq * hd), k4, v4
+
+
+def _attention_local_heads(q3, k3, v3, positions, cfg, flags, causal: bool,
+                           roped: bool):
+    """`_attend_heads` on each rank's own query heads (`local_map`): the
+    batch split over dp (when it divides), the heads over "model", folded
+    rank by rank, so no view merges a split dim and nothing is gathered.
+    Kv heads that "model" does not divide (granite-8b: 8 kv heads, 16
+    ranks, each rank's wk columns half a head) are gathered over "model"
+    for every rank, which takes those its query heads read; their gradient,
+    each rank's share, is reduce-scattered back."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = flags.mesh
+    b = q3.shape[0]
+    bspec = tuple(flags.dp) if b % dp_size(mesh) == 0 else None
+    kv_split = heads_split(mesh, cfg.n_kv_heads)
+    q_plc = placements(mesh, (bspec, None, "model"))
+    kv_plc = q_plc if kv_split else placements(mesh, (bspec, None, None))
+    kv4_plc = placements(mesh, (bspec, None, "model" if kv_split else None, None))
+    hq_local = cfg.n_heads // model_size(mesh)
+    pos_plc = placements(mesh, (bspec, None))
+    if positions is not None:
+        positions = place(positions, mesh, pos_plc)
+
+    def body(q, k, v, pos):
+        head0 = 0 if kv_split else mesh.get_local_rank("model") * hq_local
+        return _attend_heads(q, k, v, pos, cfg, flags, causal, roped, head0)
+
+    kv_grad = kv_plc if kv_split else partial_on(kv_plc, mesh, ("model",))
+    return local_map(
+        body, out_placements=(q_plc, kv4_plc, kv4_plc),
+        in_placements=(q_plc, kv_plc, kv_plc, None if positions is None else pos_plc),
+        in_grad_placements=(q_plc, kv_grad, kv_grad,
+                            None if positions is None else pos_plc),
+        device_mesh=mesh, redistribute_inputs=True)(q3, k3, v3, positions)
 
 
 def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg,
@@ -312,6 +405,7 @@ class MLP(nn.Module):
 
 
 def mlp(p: MLP, x, kind: str, flags: RuntimeFlags | None = None):
+    x = reduce_grad(x)     # the input gradient of the column-parallel w1 (w3)
     if kind == "swiglu":
         h = torch.nn.functional.silu(linear(p.w1, x)) * linear(p.w3, x)
     else:

@@ -17,10 +17,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from repro_torch.distributed.sharding import unshard
+from repro_torch.distributed.sharding import reduce_grad, unshard
 from repro_torch.kernels.ssd_scan.ops import linear_recurrence
 
-from .layers import Linear, RuntimeFlags, gain, linear, pad_local, rms_norm
+from .layers import Linear, RuntimeFlags, gain, linear, pad_local, rms_norm, shard
 
 __all__ = ["Mamba2Block", "mamba2_block", "mamba2_decode", "init_mamba2_state"]
 
@@ -74,11 +74,15 @@ def mamba2_block(p: Mamba2Block, u, cfg, flags: RuntimeFlags,
     """u: ``[B, L, d]`` -> ``(out [B, L, d], (conv_state, ssm_state))``."""
     b, l, _ = u.shape
     d_inner, nh, hd, ds = _dims(cfg)
-    zxbcdt = unshard(linear(p.in_proj, u), -1)   # whole before it is cut in parts
+    # in_proj is column-parallel where "model" divides its output (its input
+    # gradient summed there once); whole before it is cut in parts
+    zxbcdt = unshard(linear(p.in_proj, reduce_grad(u)), -1)
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * nh * ds]
     dt = zxbcdt[..., -nh:]
-    xbc, conv_state = _causal_conv(xbc, p.conv_w, conv_state)
+    # the conv weight whole, as xbc is: its channels are then cut into
+    # x, B and C at offsets that no split over "model" follows
+    xbc, conv_state = _causal_conv(xbc, unshard(p.conv_w, -1), conv_state)
     x = xbc[..., :d_inner].reshape(b, l, nh, hd)
     bmat = xbc[..., d_inner:d_inner + nh * ds].reshape(b, l, nh, ds)
     cmat = xbc[..., d_inner + nh * ds:].reshape(b, l, nh, ds)
@@ -89,14 +93,15 @@ def mamba2_block(p: Mamba2Block, u, cfg, flags: RuntimeFlags,
 
     # discretized input: x_bar = dt * x ; recurrence S += (B dt x)
     v_in = x * dt_s[..., None].to(x.dtype)
-    # head sharding happens on the merged B*H dim inside linear_recurrence
+    # on a mesh the heads split over "model" inside linear_recurrence
     y, ssm_state = linear_recurrence(
         cmat, bmat, v_in, w, s0=ssm_state, inclusive=True,
         use_kernels=flags.use_kernels, flags=flags)
     y = y + x * p.d_skip[None, None, :, None].to(x.dtype)
     y = y.reshape(b, l, d_inner)
     y = rms_norm(y * F.silu(z), p.norm_g, cfg.norm_eps)
-    return linear(p.out_proj, y), (conv_state, ssm_state)
+    # row-parallel out_proj: its partial sums reduced here, the residual whole
+    return shard(linear(p.out_proj, y), flags, "dp", None, None), (conv_state, ssm_state)
 
 
 def init_mamba2_state(cfg, batch: int, dtype=torch.float32, device=None):

@@ -46,10 +46,21 @@ import functools
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import batch_placements, like, place, unshard
+from repro_torch.distributed.sharding import (
+    batch_placements,
+    like,
+    max_over,
+    model_size,
+    place,
+    reduce_grad,
+    sum_over,
+    unshard,
+    unshard_table,
+)
 from repro_torch.kernels.common import resolve_device
 
 from . import mamba2 as m2
@@ -272,7 +283,7 @@ def _rwkv_block(lp: RWKVLayer, x, cfg, flags, state=(None, None, None)):
                                      flags, shift_state=tsh, wkv_state=wkv)
     x = x + h
     h, csh = rw.rwkv_channel_mix(lp.chan, rms_norm(x, lp.ln2, cfg.norm_eps),
-                                 shift_state=csh)
+                                 shift_state=csh, flags=flags)
     return x + h, (tsh, wkv, csh)
 
 
@@ -393,14 +404,15 @@ def _backbone(model: LM, x, cfg, flags, front: dict, collect_cache: bool = True)
 def _embed(model: LM, tokens, cfg, flags):
     # on a mesh the vocab-split table is gathered for the lookup (GSPMD
     # gathers a table that a gather reads, too); its gradient scatters back
-    x = F.embedding(tokens, unshard(model.emb.emb, 0))
+    x = F.embedding(tokens, unshard_table(model.emb.emb, 0))
     if flags.mesh is not None:
         x = place(x, flags.mesh, batch_placements(flags.mesh, x.shape[0], x.ndim))
     return x.to(compute_dtype(cfg))
 
 
 def _unembed(model: LM, x, cfg, flags=None):
-    x = rms_norm(x, model.ln_f, cfg.norm_eps)
+    # the input gradient of the column-parallel head, summed over "model" once
+    x = reduce_grad(rms_norm(x, model.ln_f, cfg.norm_eps))
     if cfg.tie_embeddings:
         logits = x @ model.emb.emb.T.to(x.dtype)
     else:
@@ -408,6 +420,46 @@ def _unembed(model: LM, x, cfg, flags=None):
     # vocab-sharded logits, where the reference constrains them
     logits = shard(logits, flags, "dp", None, "model")
     return logits.float()
+
+
+def _token_nll(logits, labels, flags):
+    """Each token's ``logsumexp(logits) - logits[label]`` ``[B, S]`` f32.
+
+    Logits split over "model" by vocab stay split, as the reference keeps
+    them: each rank reduces its vocab slice, and the max, the sum of
+    exponentials and the gold logit (from the rank whose slice holds the
+    label) are reduced over "model" ([B, S] values, not the vocab)."""
+    if isinstance(logits, DTensor) and model_size(flags.mesh) > 1 and any(
+            p.is_shard(logits.ndim - 1) for p in logits.placements):
+        return _vocab_parallel_nll(logits, labels, flags.mesh)
+    logits = unshard(logits, -1)     # the vocab whole on every rank
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return lse - gold
+
+
+def _vocab_parallel_nll(logits, labels, mesh):
+    from torch.distributed.tensor.experimental import local_map
+
+    names = mesh.mesh_dim_names
+    out_plc = [Replicate() if names[i] == "model" else p
+               for i, p in enumerate(logits.placements)]
+    lab_plc = list(labels.placements)
+
+    def body(lg, lab):
+        vl = lg.shape[-1]
+        lo = mesh.get_local_rank("model") * vl
+        m = max_over(lg.detach().amax(dim=-1), mesh, "model")
+        sumexp = torch.exp(lg - m[..., None]).sum(dim=-1)
+        mine = (lab >= lo) & (lab < lo + vl)
+        idx = torch.where(mine, lab - lo, 0).long()
+        gold = torch.where(mine, lg.gather(-1, idx[..., None])[..., 0], 0.0)
+        tot = sum_over(torch.stack([sumexp, gold]), mesh, "model")
+        return torch.log(tot[0]) + m - tot[1]
+
+    return local_map(body, out_placements=out_plc, in_placements=(logits.placements,
+                                                                   lab_plc),
+                     device_mesh=mesh)(logits, labels)
 
 
 def _place_inputs(flags, tokens, extra: dict):
@@ -451,10 +503,7 @@ def train_forward(model: LM, tokens, labels, cfg, flags: RuntimeFlags,
     x = _embed(model, tokens, cfg, flags)
     x, _, aux = _backbone(model, x, cfg, flags, front, collect_cache=False)
     logits = _unembed(model, x, cfg, flags)
-    logits = unshard(logits, -1)     # the vocab whole on every rank for the loss
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    nll = (lse - gold).mean()
+    nll = _token_nll(logits, labels, flags).mean()
     loss = nll + 0.01 * aux
     nll = nll.detach()
     return loss, {"nll": nll, "aux": aux.detach(),

@@ -21,8 +21,9 @@ from the unsharded one.  Expert parallelism (``_moe_shard_map``'s
 counterpart, `_moe_mesh`) runs through `local_map`: rank (i, j) owns group
 i and the j-th slice of experts (their weights stay where the placements
 put them); dispatch and the expert products run on local tensors, and the
-only collective is one all-gather of the expert outputs over "model".  The
-aux loss takes the router statistics of all groups.
+only collective is one all-gather of the expert outputs over "model" (in
+the backward pass, one all-reduce of the tokens' gradient).  The aux loss
+takes the router statistics of all groups.
 
 No Pallas kernel is involved, so the expert products are `torch.einsum`
 calls.
@@ -37,7 +38,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from repro_torch.distributed.sharding import mesh_axes, unshard
+from repro_torch.distributed.sharding import gather_over, mesh_axes, partial_on, unshard
 
 from .layers import Linear, RuntimeFlags, linear, shard
 
@@ -131,17 +132,18 @@ def _dp_groups(flags: RuntimeFlags | None, t: int) -> int:
     return g if t % g == 0 else 1
 
 
-def _dispatch(xt, router_w, w1, w2, w3, cfg, dropless, e0: int = 0):
+def _dispatch(xt, router_w, w1, w2, w3, cfg, dropless, e0: int = 0, xe=None):
     """Route one group's tokens ``xt [T, d]`` and run the experts ``[e0, e0
     + E_local)`` whose weights are given (all of them by default) on the
-    pairs routed to them.  Returns the expert outputs ``[E_local, C + 1,
-    d]`` (row ``C``: the dropped pairs' trash), the routing and the router
-    logits (f32 ``[T, E]``)."""
+    pairs routed to them; ``xe``, the same tokens, feeds the experts when
+    given (a separate input for its gradient).  Returns the expert outputs
+    ``[E_local, C + 1, d]`` (row ``C``: the dropped pairs' trash), the
+    routing and the router logits (f32 ``[T, E]``)."""
     d, k = xt.shape[1], cfg.moe_topk
     e_loc = w1.shape[0]
     logits = (xt @ router_w.to(xt.dtype)).float()
     r = _route(logits, cfg, dropless)
-    xrep = xt.repeat_interleave(k, dim=0)                      # [T*k, d]
+    xrep = (xt if xe is None else xe).repeat_interleave(k, dim=0)   # [T*k, d]
     mine = (r.eid >= e0) & (r.eid < e0 + e_loc) & r.keep
     buf = xt.new_zeros((e_loc, r.cap + 1, d))
     buf.index_put_((torch.where(mine, r.eid - e0, 0), torch.where(mine, r.slot, r.cap)),
@@ -161,8 +163,15 @@ def _combine(ye, r: Routing, k: int):
 
 def _moe_mesh(p: MoE, x, cfg, flags: RuntimeFlags, dropless: bool):
     """Expert-parallel MoE on a mesh (the reference's ``_moe_shard_map``,
-    and its one-group path on a mesh)."""
-    from torch.distributed._functional_collectives import all_gather_tensor_autograd
+    and its one-group path on a mesh).
+
+    Gradients: each rank's expert weights and the tokens it dispatched take
+    only its own experts' share of the gradient, and the gathered outputs
+    hand each rank its experts' rows of theirs (`gather_over`), so the
+    tokens enter twice: once routed (the router's gradient, the same on
+    every "model" rank) and once dispatched (partial sums over "model",
+    summed once where the two meet).  The weights are replicated over dp,
+    each dp rank holding its group's share of their gradient."""
     from torch.distributed.tensor.experimental import local_map
 
     b, s, d = x.shape
@@ -175,26 +184,33 @@ def _moe_mesh(p: MoE, x, cfg, flags: RuntimeFlags, dropless: bool):
     xt = shard(x.reshape(g, t // g, d), flags, "dp" if g > 1 else None, None, None)
     w3 = getattr(p, "w3", None)
 
-    def body(xt_l, router_w, w1, w2, w3_l):
+    def body(xt_l, xe_l, router_w, w1, w2, w3_l):
         e_loc = w1.shape[0]
         j = mesh.get_local_rank("model") if e_loc < e else 0
         ye, r, logits = _dispatch(xt_l[0], router_w, w1, w2, w3_l, cfg, dropless,
-                                  j * e_loc)
+                                  j * e_loc, xe=xe_l[0])
         if e_loc < e:
-            ye = all_gather_tensor_autograd(
-                ye, 0, mesh.get_group(mesh.mesh_dim_names.index("model")))
+            ye = gather_over(ye, mesh, "model")
         counts = torch.zeros(e, device=ye.device).index_add_(
             0, r.eid, torch.ones_like(r.wts))
         # the group's router statistics, one row per group like the tokens
         return (_combine(ye, r, k)[None].to(x.dtype),
                 torch.softmax(logits, dim=-1).sum(dim=0)[None], counts[None])
 
+    dp = tuple(flags.dp) if g > 1 else ()
     plc = lambda w: None if w is None else w.placements
+    grad = lambda w: None if w is None else partial_on(w.placements, mesh, dp)
+    experts_split = p.w1.to_local().shape[0] < e
+    xe_grad = partial_on(xt.placements, mesh, ("model",)) if experts_split else \
+        xt.placements
     out, psum, counts = local_map(
         body, out_placements=(xt.placements,) * 3,
-        in_placements=(xt.placements, plc(p.router.w), plc(p.w1), plc(p.w2), plc(w3)),
+        in_placements=(xt.placements, xt.placements, plc(p.router.w), plc(p.w1),
+                       plc(p.w2), plc(w3)),
+        in_grad_placements=(xt.placements, xe_grad, grad(p.router.w), grad(p.w1),
+                            grad(p.w2), grad(w3)),
         device_mesh=mesh,
-    )(xt, p.router.w, p.w1, p.w2, w3)
+    )(xt, xt, p.router.w, p.w1, p.w2, w3)
     me = psum.sum(dim=0) / t
     ce = counts.sum(dim=0) / (t * k)
     return out.reshape(b, s, d), e * (me * ce).sum()

@@ -18,9 +18,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed.sharding import reduce_grad
 from repro_torch.kernels.ssd_scan.ops import linear_recurrence
 
-from .layers import Linear, RuntimeFlags, linear, rms_norm
+from .layers import Linear, RuntimeFlags, linear, rms_norm, shard
 
 __all__ = ["RWKVTimeMix", "RWKVChannelMix", "rwkv_time_mix", "rwkv_channel_mix",
            "init_rwkv_state"]
@@ -80,6 +81,7 @@ def rwkv_time_mix(p: RWKVTimeMix, x, cfg, flags: RuntimeFlags,
     [B, H, K, V] f32))``."""
     b, l, d = x.shape
     nh, ds, inner = _dims(cfg)
+    x = reduce_grad(x)     # the input of the column-parallel wr, wk, wv, ww, wg
     x_prev = _shifted(x, shift_state)
     mix = p.mix.to(x.dtype)
     xs = [x + (x_prev - x) * mix[i][None, None, :] for i in range(5)]
@@ -96,15 +98,20 @@ def rwkv_time_mix(p: RWKVTimeMix, x, cfg, flags: RuntimeFlags,
                                      flags=flags)
     y = y.reshape(b, l, inner)
     y = rms_norm(y, p.ln_g, cfg.norm_eps) * g
-    return linear(p.wo, y), (x[:, -1:, :], wkv_state)
+    # row-parallel wo: its partial sums reduced here, the residual whole
+    return shard(linear(p.wo, y), flags, "dp", None, None), (x[:, -1:, :], wkv_state)
 
 
-def rwkv_channel_mix(p: RWKVChannelMix, x, shift_state=None):
-    """Squared-ReLU channel mix: ``(out [B, L, d], shift_state [B, 1, d])``."""
+def rwkv_channel_mix(p: RWKVChannelMix, x, shift_state=None,
+                     flags: RuntimeFlags | None = None):
+    """Squared-ReLU channel mix: ``(out [B, L, d], shift_state [B, 1, d])``;
+    on a mesh (``flags.mesh``) the row-parallel wv's partial sums are
+    reduced here."""
+    x = reduce_grad(x)     # the input of the column-parallel wk
     x_prev = _shifted(x, shift_state)
     xk = x + (x_prev - x) * p.mix.to(x.dtype)[0][None, None, :]
     h = torch.square(F.relu(linear(p.wk, xk)))
-    return linear(p.wv, h), x[:, -1:, :]
+    return shard(linear(p.wv, h), flags, "dp", None, None), x[:, -1:, :]
 
 
 def init_rwkv_state(cfg, batch: int, dtype=torch.float32, device=None):

@@ -19,7 +19,10 @@ package, in f32 on reduced configs:
     reference's formula over all tokens;
   * one smollm train step: the loss, every gradient leaf and one AdamW
     update equal the unsharded port and the reference's make_train_step
-    without a mesh, to 1e-5 (rwkv6 and zamba2: the unsharded port);
+    without a mesh, to 1e-5 (the other five families and 3 query heads on
+    a 2-way "model" axis: the unsharded port), and after the backward pass
+    every gradient has its parameter's placement on "model" and its local
+    shape;
   * a 4-rank checkpoint writes host_0..3.npz, meta.json and COMMITTED,
     restores equal, and its host_0.npz loads through the reference's
     restore_checkpoint.
@@ -136,6 +139,7 @@ def _train_step_equals_unsharded(res, adamw=True):
     from test_torch_train import _assert_params_after_adamw
 
     np.testing.assert_allclose(res["loss_mesh"], res["loss_plain"], rtol=1e-5)
+    assert list(res["off_placement"]) == [], res["off_placement"]
     grads = sorted(k.split("/", 1)[1] for k in res if k.startswith("grad_plain/"))
     assert len(grads) > 10
     for n in grads:
@@ -157,6 +161,23 @@ def test_scan_families_train_on_the_mesh(tmp_path, arch):
     loss and every gradient leaf (AdamW's update is the smollm test's)."""
     _train_step_equals_unsharded(_spawn(tmp_path, "train", LR, WARMUP, TOTAL, arch),
                                  adamw=False)
+
+
+@pytest.mark.parametrize("arch, heads", [
+    ("granite-moe-1b-a400m", None), ("whisper-base", None),
+    ("llama-3.2-vision-11b", None),
+    # 3 query heads, 1 kv head: "model" (2) divides neither, so attention
+    # folds whole heads by the reference's fold priorities
+    ("smollm-360m", (3, 1))])
+def test_other_families_train_on_the_mesh(tmp_path, arch, heads):
+    """One train step of the experts (expert-parallel gradients through
+    local_map, no pair dropped), the cross-attention families (the kv
+    source's gradient reduced once over every layer) and query heads that
+    "model" does not divide: the loss, every gradient leaf and AdamW's
+    update equal the unsharded port's, each gradient placed as its
+    parameter on "model"."""
+    _train_step_equals_unsharded(_spawn(tmp_path, "train", LR, WARMUP, TOTAL, arch,
+                                        heads))
 
 
 def test_train_step_on_the_mesh_equals_unsharded_and_reference(tmp_path):

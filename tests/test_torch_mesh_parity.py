@@ -1,0 +1,185 @@
+"""The port's sharded train step divides the work as the reference's does.
+
+Each side counts one train step per device, in a subprocess of its own (as
+`test_dryrun_small` and `test_torch_dryrun.py` run theirs):
+
+  * the reference: its own dry run (`repro.launch.dryrun.run_cell`), with a
+    mesh of Auto axes (``jax.make_mesh(..., axis_types=(AxisType.Auto,) *
+    n)``) on ``--xla_force_host_platform_device_count`` host devices in
+    place of `make_production_mesh`: `build_cell`, ``jax.jit(fn,
+    in_shardings, out_shardings).lower(*args).compile()``, then
+    `hlo_analysis.analyze_hlo` of the compiled text (XLA's SPMD
+    partitioner decides the collectives);
+  * the port: `repro_torch.launch.steps.build_cell` on a fake process
+    group (`dryrun.fake_world`) and `hlo_analysis.analyze_step`.
+
+Both count per-device dot FLOPs and per-device collective result bytes;
+the largest single collective is, in the reference, the largest result
+shape of a collective instruction in the HLO, and in the port
+``largest_collective_bytes``.
+
+Cases: the six families, reduced, on a (2, 4) mesh (train, B 4, S 64);
+reduced smollm with 6 query heads, which the 4-way "model" axis does not
+divide (attention then folds whole heads by the reference's fold
+priorities); and granite-8b with 2 layers on the pod mesh (16 x 16, 256
+devices) at train_4k.  The scan families' dot FLOPs are not compared: the
+reference's plain chunked scan is einsums, the port's plain scan is
+elementwise.
+
+The port's run also holds each gradient after ``loss.backward()`` to its
+parameter's placement on "model" and local shape, and traces
+`clip_by_global_norm` and `adamw_update` on the reduced gradients: no
+collective there moves more than a 0-d sum.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+FAMILIES = ["smollm-360m", "granite-moe-1b-a400m", "rwkv6-1.6b", "zamba2-2.7b",
+            "whisper-base", "llama-3.2-vision-11b"]
+SCAN_FAMILIES = {"rwkv6-1.6b", "zamba2-2.7b"}
+# case: (arch, mesh, n_layers ("reduced": the reduced config), query and kv heads)
+CASES = {arch: (arch, (2, 4), "reduced", None) for arch in FAMILIES}
+CASES["smollm-360m-6-heads"] = ("smollm-360m", (2, 4), "reduced", (6, 2))
+CASES["granite-8b-pod"] = ("granite-8b", (16, 16), 2, None)
+
+# the cell both sides build: (config, shape), with jax or torch configs
+CELL = r"""
+import dataclasses, json, sys
+arch, mesh_shape, n_layers, heads = json.loads(sys.argv[1])
+
+def cell(get_config, SHAPES, ShapeSpec):
+    cfg = get_config(arch)
+    if n_layers == "reduced":
+        cfg, shape = cfg.reduced(), ShapeSpec("small_train", "train", 64, 4)
+    else:
+        cfg, shape = dataclasses.replace(cfg, n_layers=n_layers), SHAPES["train_4k"]
+    if heads:
+        cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
+    return cfg, shape
+"""
+
+REFERENCE = CELL + r"""
+import os
+import numpy as np
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
+                           f"{int(np.prod(mesh_shape))}")
+import jax
+from jax.sharding import AxisType
+from repro.configs import get_config
+from repro.distributed.sharding import dp_axes
+from repro.launch import hlo_analysis
+from repro.launch.shapes import SHAPES, ShapeSpec
+from repro.launch.steps import build_cell
+from repro.models import RuntimeFlags
+
+cfg, shape = cell(get_config, SHAPES, ShapeSpec)
+mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2)
+flags = RuntimeFlags(use_pallas=False, interpret=False, remat=True, mesh=mesh,
+                     dp=dp_axes(mesh))
+fn, args, in_shardings, out_shardings = build_cell(cfg, shape, mesh, flags)
+with mesh:
+    text = jax.jit(fn, in_shardings=in_shardings,
+                   out_shardings=out_shardings).lower(*args).compile().as_text()
+hlo = hlo_analysis.analyze_hlo(text)
+largest = 0
+for line in text.splitlines():
+    parts = hlo_analysis._instr_parts(line)
+    if parts and parts[2].replace("-start", "") in hlo_analysis.COLLECTIVE_OPS:
+        largest = max(largest, hlo_analysis._shape_bytes(parts[1]))
+print(json.dumps({"dot_flops": hlo["dot_flops"],
+                  "collective_bytes": hlo.collective_bytes, "largest": largest}))
+"""
+
+PORT = CELL + r"""
+import numpy as np
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import dp_axes, grads_off_placement, reduce_grads
+from repro_torch.launch import dryrun, hlo_analysis
+from repro_torch.launch.shapes import SHAPES, ShapeSpec
+from repro_torch.launch.steps import build_cell
+from repro_torch.models import RuntimeFlags, train_forward
+from repro_torch.optim import adamw_update, clip_by_global_norm
+
+cfg, shape = cell(get_config, SHAPES, ShapeSpec)
+dryrun.fake_world(int(np.prod(mesh_shape)))
+mesh = init_device_mesh("cpu", tuple(mesh_shape), mesh_dim_names=("data", "model"))
+flags = RuntimeFlags(use_kernels=False, remat=True, mesh=mesh, dp=dp_axes(mesh))
+fn, args, _, _ = build_cell(cfg, shape, mesh, flags)
+hlo = hlo_analysis.analyze_step(lambda: fn(*args))
+
+# the gradients as the backward pass leaves them, then the optimizer's collectives
+model, opt, batch = args
+model.requires_grad_(True)
+extra = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+loss, _ = train_forward(model, batch["tokens"], batch["labels"], cfg, flags, extra)
+loss.backward()
+off = {k: [str(p) for p in v] for k, v in grads_off_placement(model).items()}
+reduce_grads(model)
+clip = hlo_analysis.analyze_step(
+    lambda: clip_by_global_norm([p.grad for p in model.parameters()], 1.0))
+adamw = hlo_analysis.analyze_step(lambda: adamw_update(model, opt, 1e-3))
+print(json.dumps({"dot_flops": hlo["dot_flops"], "collective_bytes": hlo.collective_bytes,
+                  "largest": hlo["largest_collective_bytes"], "off_placement": off,
+                  "grads": sum(p.grad is not None for p in model.parameters()),
+                  "clip_largest": clip["largest_collective_bytes"],
+                  "adamw_collective_bytes": adamw.collective_bytes}))
+"""
+
+
+def _run(code, case, jax_side):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    if jax_side:
+        env["JAX_PLATFORMS"] = "cpu"
+    out = subprocess.run([sys.executable, "-c", code, json.dumps(CASES[case])],
+                         capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@functools.cache
+def _port(case):
+    return _run(PORT, case, False)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_port_divides_the_work_as_the_reference(case):
+    ref, port = _run(REFERENCE, case, True), _port(case)
+    arch = CASES[case][0]
+    flops = port["dot_flops"] / ref["dot_flops"]
+    coll = port["collective_bytes"] / ref["collective_bytes"]
+    what = (case, ref, port)
+    if case == "granite-8b-pod":
+        assert abs(flops - 1) <= 0.05, what
+        assert coll <= 1.10, what
+        assert port["largest"] <= 2 ** 31, what
+    else:
+        assert coll <= 1.5, what
+        if arch not in SCAN_FAMILIES:
+            assert flops <= 1.10, what
+
+
+@pytest.mark.parametrize("case", FAMILIES + ["granite-8b-pod"])
+def test_gradients_leave_the_backward_pass_placed_as_their_parameters(case):
+    port = _port(case)
+    assert port["grads"] > 10, port
+    assert port["off_placement"] == {}, port["off_placement"]
+
+
+@pytest.mark.parametrize("case", FAMILIES)
+def test_clip_and_adamw_move_no_more_than_a_0d_sum(case):
+    port = _port(case)
+    assert port["clip_largest"] <= 4, port         # one f32 scalar per collective
+    assert port["adamw_collective_bytes"] == 0, port

@@ -153,26 +153,40 @@ def moe(mesh, out, capacity_factor):
             **{f"w/{n}": w for n, w in weights.items()}}
 
 
-def train(mesh, out, lr, warmup, total, arch="smollm-360m"):
+def train(mesh, out, lr, warmup, total, arch="smollm-360m", heads=None):
     """One train step of ``arch``, with and without the mesh: the loss and
     every gradient (train_forward, backward), then make_train_step's AdamW
-    update from the initial weights."""
+    update from the initial weights.  ``heads``: (query heads, kv heads) in
+    place of the config's.  The moe family runs with a capacity that drops
+    no pair, in dp groups or not, so that both compute one function.  The
+    mesh's gradients whose placement on "model" or local shape is not their
+    parameter's are listed under ``off_placement``."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.distributed.sharding import grads_off_placement
+    from repro_torch.launch.steps import extra_specs, make_train_step
     from repro_torch.models import train_forward
     from repro_torch.optim import adamw_init
 
     cfg = get_config(arch).reduced()
+    if heads is not None:
+        cfg = dataclasses.replace(cfg, n_heads=int(heads[0]), n_kv_heads=int(heads[1]))
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.moe_experts))
     rng = np.random.default_rng(4)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16))) for k in
              ("tokens", "labels")}
+    batch.update({k: torch.from_numpy(rng.standard_normal(v.shape).astype(np.float32))
+                  for k, v in extra_specs(cfg, 4).items()})
     res = {}
     for name, flags, model in zip(("plain", "mesh"), _flags(mesh, remat=True),
                                   _models(cfg, mesh, param_dtype=torch.float32)):
         model.requires_grad_(True)
-        loss, _ = train_forward(model, batch["tokens"], batch["labels"], cfg, flags)
+        extra = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+        loss, _ = train_forward(model, batch["tokens"], batch["labels"], cfg, flags, extra)
         loss.backward()
         res[f"loss_{name}"] = _host(loss)
+        if name == "mesh":
+            res["off_placement"] = np.array(sorted(grads_off_placement(model)), dtype=str)
         for n, p in model.named_parameters():
             res[f"grad_{name}/{n}"] = _host(p.grad)
         model.zero_grad(set_to_none=True)
