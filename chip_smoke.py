@@ -158,7 +158,16 @@ either package has a backward pass:
      36 restores step 30 and takes 6 steps; then 10 steps on one fixed
      batch lower its loss by more than MEMO_DROP (the step learns; 30
      fresh batches at lr 3e-3 do not lower the loss, nor do they in the
-     reference's trainer at full width and 2 layers, PERF.md);
+     reference's trainer at full width and 2 layers, PERF.md); then the
+     dry run's memory held to the card's allocator: for one step of this
+     cell, and for step 20's smollm-360m prefill on the plain path, (a)
+     the device peak (argument + output - alias + temp, launch/dryrun.py)
+     that hlo_analysis.analyze_step measures on meta tensors equals (b)
+     the same tracker on the card's step to the byte (else the first op
+     whose allocation differs is named), and (c) the caching allocator's
+     peak over that step, from before its arguments are built, is within
+     MEMORY_REL of (a); the prefill on the kernels holds (b) to (c) the
+     same way, 32 attention launches around which torch allocates;
   26. the gradient on the card against the CPU: smollm-360m at full width,
      f32, 2 layers, B = 2, S = 64, the same weights: loss within 1e-5
      relative, every gradient leaf within 1e-4 relative L2, one AdamW step's
@@ -168,7 +177,8 @@ either package has a backward pass:
      train step of granite-moe-1b-a400m (aux > 0), rwkv6-1.6b, zamba2-2.7b,
      whisper-base and llama-3.2-vision-11b at full width with the fewest
      layers (groups) that keep each structure, bf16 over f32 master
-     weights: finite loss, finite grad norm > 0, no kernel launch.
+     weights: finite loss, finite grad norm > 0, no kernel launch, and
+     the allocator's peak beside the dry run's on meta tensors.
 
 Steps 12-26 run on plain tensors: on a world of one the launchers serve
 and train without a mesh (mesh.launch_mesh).  Then the device mesh
@@ -193,12 +203,14 @@ on each rank's local rows:
   29. the dry run, host only: launch/hlo_analysis.py's counts checked on a
      fake world of 4, then launch/dryrun.py for granite-8b x train_4k x pod
      on a fake process group of 256 ranks (meta tensors, its own process):
-     per-device argument bytes against the card's memory (they must fit),
-     per-device dot_flops, collective bytes and the roofline's terms at the
-     H100's datasheet peaks; the dot_flops within DRYRUN_FLOPS_REL of the
-     reference's dry run of the same cell, the collective bytes at most
-     DRYRUN_COLL_RATIO times its, the largest collective at most 2^31 B
-     (REF_DRYRUN, counted on the CPU); and at one layer, every gradient
+     the device's per-device peak, argument + output - alias + temp,
+     against the card's memory (it must fit), per-device dot_flops,
+     collective bytes and the roofline's terms at the H100's datasheet
+     peaks; the dot_flops within DRYRUN_FLOPS_REL of the reference's dry
+     run of the same cell, the collective bytes at most DRYRUN_COLL_RATIO
+     times its, the largest collective at most 2^31 B, the temporaries at
+     most DRYRUN_TEMP_RATIO times its (REF_DRYRUN, counted on the CPU);
+     and at one layer, every gradient
      placed as its parameter on "model" after the backward pass, the clip
      and AdamW moving at most 0-d sums (GRAD_CHECK).
 
@@ -1765,6 +1777,9 @@ FAMILY_TRAIN = (  # arch, the fewest layers (groups) that keep its structure
     ("llama-3.2-vision-11b", {"n_layers": 5}),           # one group: 4 self + 1 cross
 )
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 2, 256
+# the caching allocator's peak over one step against the dry run's device
+# peak of the same step on meta tensors (launch/dryrun.py)
+MEMORY_REL = 0.05
 
 
 def _all_wrappers():
@@ -1950,54 +1965,193 @@ def _grad_check():
             param_rel, "adamw_entries_unresolved": left_out}
 
 
+def _train_cell(cfg, batch, seq, device):
+    """A train step as launch/train.py builds it (f32 master weights from
+    SEED, AdamW, make_train_step with the trainer's flags: plain paths,
+    remat) and its arguments on ``device``: the card, or "meta" as the dry
+    run builds them.  Returns (step, arguments, the state it updates in
+    place)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import extra_specs, make_train_step
+    from repro_torch.models import RuntimeFlags, init_params
+    from repro_torch.optim import adamw_init
+
+    meta = device == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(SEED)
+    model = init_params(gen, cfg, device=device, param_dtype=torch.float32)
+    opt = adamw_init(model)
+    rng = np.random.default_rng(SEED)
+    data = {k: torch.empty((batch, seq), dtype=torch.long, device=device) if meta else
+            torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))).to(device)
+            for k in ("tokens", "labels")}
+    data.update(extra_specs(cfg, batch) if meta else _seeded_extra(cfg, batch))
+    step = make_train_step(cfg, RuntimeFlags(use_kernels=False, remat=True), lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP, total=TRAIN_STEPS)
+    return step, (model, opt, data), (model, opt)
+
+
+def _prefill_cell(use_kernels, device):
+    """Step 20's prefill as launch/serve.py runs it: smollm-360m's seeded
+    weights in its compute dtype, FAMILY_REQUESTS x 1000 prompt tokens, the
+    cache padded to serve's max_seq; on ``device`` as `_train_cell`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import RuntimeFlags, init_params
+
+    arch, prompt = FAMILIES[0][:2]
+    cfg = serve.get_config(arch)
+    meta = device == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(serve.SEED)
+    model = init_params(gen, cfg, device=device)
+    shape = (FAMILY_REQUESTS, prompt)
+    tokens = (torch.empty(shape, dtype=torch.long, device=device) if meta else
+              torch.from_numpy(np.random.default_rng(serve.SEED).integers(0, cfg.vocab, shape))
+              .to(device))
+    step = make_prefill_step(cfg, RuntimeFlags(use_kernels=use_kernels),
+                             pad_to=prompt + FAMILY_DECODE)
+    return step, (model, {"tokens": tokens}), ()
+
+
+def _allocator_peak(build):
+    """The caching allocator's peak over one step of ``build("cuda")``, reset
+    before its arguments are built, less what the card held before."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn, args, _ = build("cuda")
+    fn(*args)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _traced_peak(build, device):
+    """The dry run's device peak of ``build(device)``'s step: argument +
+    output - alias + temp (launch/dryrun.py's memory_analysis over
+    hlo_analysis.analyze_step).  Returns it, the record and the trace's
+    allocations."""
+    from repro_torch.launch import dryrun, hlo_analysis
+
+    fn, args, updated = build(device)
+    hlo = hlo_analysis.analyze_step(fn, *args)
+    mem = dryrun.memory_analysis(args, hlo, updated)
+    return dryrun.device_peak_bytes(mem), mem, hlo.allocations
+
+
+def _first_difference(meta_log, card_log):
+    for i, (m, c) in enumerate(zip(meta_log, card_log)):
+        if m != c:
+            return f"allocation {i} differs: meta {m}, card {c}"
+    if len(meta_log) != len(card_log):
+        return f"{len(meta_log)} allocations on meta, {len(card_log)} on the card"
+    return "the same allocations, freed at other times"
+
+
+def _memory_check(what, build):
+    """(a) the dry run's device peak of ``build``'s step on meta tensors,
+    (b) the same tracker on the card's step, (c) the caching allocator's
+    peak over that step: a == b to the byte, |c - a| <= MEMORY_REL * c."""
+    import torch
+
+    allocator = _allocator_peak(build)
+    card, mem, card_log = _traced_peak(build, "cuda")
+    torch.cuda.empty_cache()
+    meta, _, meta_log = _traced_peak(build, "meta")
+    rel = abs(allocator - meta) / allocator
+    gib = lambda b: b / 2**30
+    print(f"{what}: (a) the dry run's device peak on meta tensors {meta} B "
+          f"({gib(meta):.4f} GiB: arguments {gib(mem['argument_size_in_bytes']):.4f}, "
+          f"temporaries {gib(mem['temp_size_in_bytes']):.4f}), (b) the same tracker on the "
+          f"card {card} B, (c) the allocator's peak {allocator} B ({gib(allocator):.4f} "
+          f"GiB); |c - a| / c = {rel:.4f} (limit {MEMORY_REL})", flush=True)
+    assert meta == card, f"{what}: {meta} != {card}; {_first_difference(meta_log, card_log)}"
+    assert rel <= MEMORY_REL, (what, meta, allocator)
+    return {"path": what, "meta_bytes": meta, "card_traced_bytes": card,
+            "allocator_bytes": allocator, "rel_diff": rel, "memory_analysis": mem}
+
+
+def _memory_points():
+    """Step 25's train step and step 20's prefill (plain path) through
+    `_memory_check`; then the prefill on the kernels, whose outputs torch
+    allocates around the launches: the tracker on the card against the
+    allocator."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
+
+    batch = int(TRAIN_ARGV[TRAIN_ARGV.index("--batch") + 1])
+    seq = int(TRAIN_ARGV[TRAIN_ARGV.index("--seq") + 1])
+    cfg = get_config("smollm-360m")
+    records = [
+        _memory_check(f"step 25 memory, smollm-360m train step (B={batch}, S={seq})",
+                      lambda d: _train_cell(cfg, batch, seq, d)),
+        _memory_check(f"step 25 memory, smollm-360m prefill at step 20's size "
+                      f"({FAMILY_REQUESTS} x {FAMILIES[0][1]}, plain path)",
+                      lambda d: _prefill_cell(False, d))]
+    build = lambda d: _prefill_cell(True, d)
+    allocator = _allocator_peak(build)
+    attn_kernel.flash_attention_cuda.launches = 0
+    card, _, _ = _traced_peak(build, "cuda")
+    launches = attn_kernel.flash_attention_cuda.launches
+    rel = abs(allocator - card) / allocator
+    print(f"step 25 memory, the same prefill on the kernels ({launches} attention "
+          f"launches): (b) the tracker on the card {card} B, (c) the allocator's peak "
+          f"{allocator} B; |c - b| / c = {rel:.4f} (limit {MEMORY_REL})", flush=True)
+    assert launches == FAMILIES[0][2][1], launches
+    assert rel <= MEMORY_REL, (card, allocator)
+    records.append({"path": "step 25 memory, smollm-360m prefill on the kernels",
+                    "card_traced_bytes": card, "allocator_bytes": allocator,
+                    "rel_diff": rel, "attention_launches": launches})
+    return records
+
+
 def _family_train_step(arch, cut):
     """Step 26b: one train_step of ``arch`` at full width, bf16 compute over
     f32 master weights, at the fewest layers (groups) that keep its
-    structure."""
+    structure; beside the allocator's peak, the dry run's for the same step
+    on meta tensors."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import RuntimeFlags, init_params
-    from repro_torch.optim import adamw_init
 
     cfg = dataclasses.replace(get_config(arch), **cut)
+    build = lambda d: _train_cell(cfg, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, d)
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    model = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg,
-                        device="cuda", param_dtype=torch.float32)
-    opt = adamw_init(model)
-    rng = np.random.default_rng(SEED)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (FAMILY_TRAIN_BATCH,
-                                                               FAMILY_TRAIN_SEQ))).cuda()
-             for k in ("tokens", "labels")}
-    batch.update(_seeded_extra(cfg, FAMILY_TRAIN_BATCH))
+    step, (model, opt, batch), _ = build("cuda")
     wrappers = _all_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    step = make_train_step(cfg, RuntimeFlags(use_kernels=False, remat=True), lr=TRAIN_LR,
-                           warmup=TRAIN_WARMUP, total=TRAIN_STEPS)
     t0 = time.perf_counter()
     met = step(model, opt, batch)
     loss, gnorm, aux = (float(met[k]) for k in ("loss", "grad_norm", "aux"))
     ms = (time.perf_counter() - t0) * 1e3
     launches = {k: w.launches for k, w in wrappers.items()}
     n_params = sum(p.numel() for p in model.parameters())
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del model, opt, batch
+    predicted = _traced_peak(build, "meta")[0] / 2**30
     print(f"step 26 {arch} ({cfg.family}, {cut}, {n_params / 1e9:.3f} B parameters, "
           f"B={FAMILY_TRAIN_BATCH}, S={FAMILY_TRAIN_SEQ}): loss {loss:.4f}, aux {aux:.4f}, "
-          f"grad norm {gnorm:.4f}, first step {ms:.0f} ms, peak {peak:.2f} GiB, launches "
-          f"{launches}", flush=True)
+          f"grad norm {gnorm:.4f}, first step {ms:.0f} ms, peak {peak:.4f} GiB (the dry "
+          f"run's on meta tensors {predicted:.4f} GiB), launches {launches}", flush=True)
     assert np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0, (arch, met)
     assert cfg.family != "moe" or aux > 0, (arch, aux)
     assert not any(launches.values()), launches
-    del model, opt
     return {"path": f"{arch} train step", "family": cfg.family, "cut": cut,
             "params_b": n_params / 1e9, "loss": loss, "aux": aux, "grad_norm": gnorm,
-            "first_step_ms": ms, "peak_gib": peak, "launches": launches}
+            "first_step_ms": ms, "peak_gib": peak, "predicted_peak_gib": predicted,
+            "launches": launches}
 
 
 def train_phase():
@@ -2009,6 +2163,9 @@ def train_phase():
     records = [_train_restart(os.path.join(ROOT, "build", "train_ckpt"))]
     UNSHARDED["train_losses"] = records[0]["losses"]
     UNSHARDED["train_step_ms"] = records[0]["step_ms"]
+    t0 = time.perf_counter()
+    records += _memory_points()
+    print(f"step 25 memory took {time.perf_counter() - t0:.1f} s", flush=True)
     records.append(_grad_check())
     for arch, cut in FAMILY_TRAIN:
         t0 = time.perf_counter()
@@ -2060,9 +2217,13 @@ print("count check", rep["dot_flops"], col["dot_flops"], row["dot_flops"],
 # (tests/test_torch_mesh_parity.py's REFERENCE program at n_layers=36).  They
 # count a compiled program's work (trace count, CPU), not a time: the card
 # machine has no jax, so they are written here.
+# temp_size_in_bytes is that compiled program's memory_analysis().
 REF_DRYRUN = {"dot_flops": 2.8449863368704e14, "collective_bytes": 3.71785089064e11,
-              "largest_collective_bytes": 2 ** 31}
+              "largest_collective_bytes": 2 ** 31, "temp_size_in_bytes": 15_256_831_784}
 DRYRUN_FLOPS_REL, DRYRUN_COLL_RATIO, DRYRUN_LARGEST = 0.05, 1.10, 2 ** 31
+# the port's temporaries over the reference's: its plain attention chain runs
+# op by op under remat, where XLA fuses it (x2.504 in this trace, a count)
+DRYRUN_TEMP_RATIO = 3.0
 # DRYRUN_CELL's model at one layer on the same fake world of 256: after the
 # backward pass every gradient is placed as its parameter on "model" with its
 # local shape, and the clip and AdamW on the reduced gradients move at most
@@ -2212,13 +2373,14 @@ def _mesh_train(mesh, ckpt_dir, smi):
 
 def _dryrun(smi):
     """Step 29 (host only): launch/dryrun.py for DRYRUN_CELL on a fake
-    process group of 256 ranks, in a process of its own; the per-device
-    arguments must fit the card's memory, and the counts must divide the
-    work as the reference's dry run does (REF_DRYRUN); then GRAD_CHECK."""
+    process group of 256 ranks, in a process of its own; the device's peak
+    (argument + output - alias + temp) must fit the card's memory, and the
+    counts and temporaries must divide the work as the reference's dry run
+    does (REF_DRYRUN); then GRAD_CHECK."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.launch import roofline
+    from repro_torch.launch import dryrun, roofline
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     check = subprocess.run([sys.executable, "-c", COUNT_CHECK], capture_output=True,
@@ -2238,27 +2400,32 @@ def _dryrun(smi):
         rec = json.load(f)
     row = roofline.analyze_record(rec)
     mem = rec["memory_analysis"]
+    peak = dryrun.device_peak_bytes(mem)
     card = torch.cuda.get_device_properties(0).total_memory
     gib = lambda b: b / 2**30
     print(f"step 29 dry run {arch} x {shape} x {mesh} ({rec['devices']} fake ranks, meta "
           f"tensors, {cell_s:.1f} s in all: arguments built in {rec['lower_s']} s, step "
           f"traced in {rec['compile_s']} s): per-device arguments "
           f"{gib(mem['argument_size_in_bytes']):.3f} GiB, outputs "
-          f"{gib(mem['output_size_in_bytes']):.3f} GiB, against the card's "
-          f"{gib(card):.2f} GiB ({smi}); largest single collective result "
-          f"{gib(rec['hlo']['largest_collective_bytes']):.3f} GiB a device (a temporary the "
-          f"arguments leave out); per-device dot_flops {rec['hlo']['dot_flops']:.4e}, "
+          f"{gib(mem['output_size_in_bytes']):.3f} GiB (aliasing arguments "
+          f"{gib(mem['alias_size_in_bytes']):.3f}), temporaries "
+          f"{gib(mem['temp_size_in_bytes']):.3f} GiB: the device's peak {gib(peak):.3f} GiB "
+          f"({peak} B) against the card's {gib(card):.2f} GiB ({smi}); largest single "
+          f"collective result {gib(rec['hlo']['largest_collective_bytes']):.3f} GiB a "
+          f"device; per-device dot_flops {rec['hlo']['dot_flops']:.4e}, "
           f"hbm_bytes {rec['hlo']['hbm_bytes']:.4e}, collective bytes "
           f"{rec['collective_bytes']:.4e} "
           f"({ {k: v for k, v in rec['hlo'].items() if k.startswith('coll/') and v} }); "
           f"roofline (H100 datasheet peaks): compute {row['compute_s']:.4e} s, memory "
           f"{row['memory_s']:.4e} s, collective {row['collective_s']:.4e} s, dominant "
           f"{row['dominant']}, useful/counted {row['useful_ratio']:.3f}, roofline fraction "
-          f"{row['roofline_fraction']:.4f}", flush=True)
-    assert mem["argument_size_in_bytes"] < card, (mem, card)
+          f"{row['roofline_fraction']:.4f}, HBM {row['mem_gb_per_dev']:.3f} GB a device",
+          flush=True)
+    assert peak < card, (mem, card)
     assert rec["hlo"]["dot_flops"] > 0 and rec["devices"] == 256
     got = {"dot_flops": rec["hlo"]["dot_flops"], "collective_bytes": rec["collective_bytes"],
-           "largest_collective_bytes": rec["hlo"]["largest_collective_bytes"]}
+           "largest_collective_bytes": rec["hlo"]["largest_collective_bytes"],
+           "temp_size_in_bytes": mem["temp_size_in_bytes"]}
     ratio = {k: got[k] / REF_DRYRUN[k] for k in got}
     print(f"step 29 against the reference's dry run of the same cell (XLA SPMD on 256 "
           f"host devices; trace count, CPU): dot_flops {got['dot_flops']:.6e} vs "
@@ -2266,11 +2433,13 @@ def _dryrun(smi):
           f"1 +- {DRYRUN_FLOPS_REL}), collective bytes {got['collective_bytes']:.6e} vs "
           f"{REF_DRYRUN['collective_bytes']:.6e} (x{ratio['collective_bytes']:.4f}, limit "
           f"{DRYRUN_COLL_RATIO}), largest collective {got['largest_collective_bytes']:.0f} "
-          f"vs {REF_DRYRUN['largest_collective_bytes']} B (limit {DRYRUN_LARGEST})",
-          flush=True)
+          f"vs {REF_DRYRUN['largest_collective_bytes']} B (limit {DRYRUN_LARGEST}), "
+          f"temporaries {got['temp_size_in_bytes']} vs {REF_DRYRUN['temp_size_in_bytes']} B "
+          f"(x{ratio['temp_size_in_bytes']:.4f}, limit {DRYRUN_TEMP_RATIO})", flush=True)
     assert abs(ratio["dot_flops"] - 1) <= DRYRUN_FLOPS_REL, (got, REF_DRYRUN)
     assert ratio["collective_bytes"] <= DRYRUN_COLL_RATIO, (got, REF_DRYRUN)
     assert got["largest_collective_bytes"] <= DRYRUN_LARGEST, got
+    assert ratio["temp_size_in_bytes"] <= DRYRUN_TEMP_RATIO, (got, REF_DRYRUN)
     grad = subprocess.run([sys.executable, "-c", GRAD_CHECK, arch, shape], capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=DRYRUN_TIMEOUT_S)
     assert grad.returncode == 0, grad.stderr[-3000:]
@@ -2280,7 +2449,8 @@ def _dryrun(smi):
           f"clip's largest collective {grads['clip_largest_collective_bytes']:.0f} B, "
           f"AdamW's collectives {grads['adamw_collective_bytes']:.0f} B", flush=True)
     return {"path": f"dry run {arch} x {shape} x {mesh}", "record": rec, "roofline": row,
-            "cell_s": cell_s, "card_bytes": card, "reference": REF_DRYRUN,
+            "cell_s": cell_s, "card_bytes": card, "device_peak_bytes": peak,
+            "reference": REF_DRYRUN,
             "ratio_to_reference": ratio, "gradient_check": grads}
 
 

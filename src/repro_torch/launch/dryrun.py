@@ -16,12 +16,20 @@ Here one process plays rank 0 of a FAKE process group of 256 (pod) or 512
   4. writes build/dryrun/<arch>__<shape>__<mesh>.json for
      `launch/roofline.py`.
 
-``memory_analysis`` holds the per-device ``argument_size_in_bytes`` (the
-local bytes of every tensor argument) and ``output_size_in_bytes`` (the
-local bytes of the step's results, and of the parameters and moments a
-train step updates in place), both exact from the local shapes.  The
-temporaries' peak is not measured (meta tensors allocate nothing), so
-``temp_size_in_bytes`` is absent and ``memory_analysis_note`` says so.
+``memory_analysis`` holds the per-device keys of the reference's
+``compiled.memory_analysis()``: ``argument_size_in_bytes`` (the local
+bytes of every tensor argument), ``output_size_in_bytes`` (the local
+bytes of the step's results, and of the parameters and moments a train
+step updates in place), ``alias_size_in_bytes`` (those updated in place:
+outputs that are arguments, as XLA's donated buffers; 0 for prefill and
+decode, whose outputs the reference does not donate) and
+``temp_size_in_bytes`` (the most bytes the step's own tensors hold at
+once, less those of its results: XLA's temporaries, outputs apart),
+measured by `hlo_analysis.analyze_step` from the storages the traced ops
+make and free; meta storages have their real sizes, so it is exact for
+what the step's tensors hold.  The fit line prints the device's peak,
+``argument + output - alias + temp`` (`device_peak_bytes`), against the
+H100's 80 GB.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k --mesh pod
@@ -48,13 +56,31 @@ from repro_torch.launch.shapes import SHAPES, cell_skipped
 from repro_torch.launch.steps import build_cell
 from repro_torch.models import RuntimeFlags
 
-__all__ = ["run_cell", "fake_world", "main", "RESULTS_DIR"]
+__all__ = ["run_cell", "fake_world", "memory_analysis", "device_peak_bytes", "main",
+           "RESULTS_DIR", "H100_BYTES"]
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
                            "dryrun")
-TEMP_NOTE = ("temp_size_in_bytes not measured: the step runs on meta tensors, "
-             "which allocate nothing; hlo.largest_collective_bytes, one tensor the "
-             "step holds at once, bounds it from below")
+H100_BYTES = 80e9    # the H100 SXM5's HBM3, datasheet
+
+
+def memory_analysis(args, hlo: hlo_analysis.HloSummary, updated=()) -> dict:
+    """The reference's ``memory_analysis`` keys, per device, for a step
+    traced by `hlo_analysis.analyze_step` on ``args``; ``updated``: the
+    state it updates in place (a train step's parameters and moments)."""
+    return {
+        "argument_size_in_bytes": hlo_analysis.tensor_bytes(args),
+        "output_size_in_bytes": hlo_analysis.tensor_bytes((hlo.result, updated)),
+        "temp_size_in_bytes": hlo.peak_bytes - hlo.result_bytes,
+        "alias_size_in_bytes": hlo_analysis.tensor_bytes(updated),
+    }
+
+
+def device_peak_bytes(mem: dict) -> int:
+    """The step's peak on the device: the arguments, the outputs that are
+    not arguments, and the temporaries."""
+    return (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+            - mem["alias_size_in_bytes"] + mem["temp_size_in_bytes"])
 
 
 def fake_world(size: int) -> None:
@@ -97,21 +123,20 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
     t0 = time.perf_counter()
     fn, args, _, _ = build_cell(cfg, shape, mesh, flags)
     t1 = time.perf_counter()
-    out = []
-    hlo = hlo_analysis.analyze_step(lambda: out.append(fn(*args)))
+    hlo = hlo_analysis.analyze_step(fn, *args)
     t2 = time.perf_counter()
 
     updated = args[:2] if shape.kind == "train" else ()   # params, AdamW state
-    mem_rec = {
-        "argument_size_in_bytes": hlo_analysis.tensor_bytes(args),
-        "output_size_in_bytes": hlo_analysis.tensor_bytes((out, updated)),
-    }
+    mem_rec = memory_analysis(args, hlo, updated)
+    peak = device_peak_bytes(mem_rec)
     print(f"[{arch} x {shape_name} x {mesh_kind}] memory_analysis:", mem_rec)
+    print(f"[{arch} x {shape_name} x {mesh_kind}] fits: argument + output - alias + temp "
+          f"= {peak / 1e9:.3f} GB a device {'<' if peak < H100_BYTES else '>='} the "
+          f"H100's {H100_BYTES / 1e9:.0f} GB")
     record.update({
         "lower_s": round(t1 - t0, 2),        # building the placed meta arguments
         "compile_s": round(t2 - t1, 2),      # the traced step
         "memory_analysis": mem_rec,
-        "memory_analysis_note": TEMP_NOTE,
         "cost_analysis": {"flops": float(hlo["dot_flops"]),
                           "bytes accessed": float(hlo["hbm_bytes"])},
         "hlo": {k: float(v) for k, v in hlo.items()},

@@ -24,6 +24,22 @@ reference's keys:
   * ``dynamic_trip_warnings`` — always 0: an eager loop runs unrolled, so
     every trip is dispatched and counted.
 
+The same trace measures the step's memory, which the dry run reports as
+the reference's ``memory_analysis`` (`launch/dryrun.py`), beside these
+keys rather than among them: ``peak_bytes``, the most bytes the step's
+own tensors held at once, and ``result_bytes``, those of its result at
+its end.  Each output storage of an op counts once, its ``nbytes`` (views
+share it, a DTensor counts its local tensor), from the op that makes it
+until its last reference dies (`StorageWeakRef.expired`, checked before
+a new peak is taken); the storages reachable from the step's arguments (parameters,
+buffers, optimizer state, batch, cache) are not the step's, so views of
+them and in-place updates count nothing.  ``empty*`` allocate and count
+here, though they move no bytes.  Ops on fake tensors, and ops dispatched
+while a fake-tensor mode is active (DTensor's sharding propagation
+allocates GLOBAL shapes there), count nothing.  On meta tensors the peak
+is exact to the byte for what the step's tensors hold; on a card the
+allocator adds its 512-byte rounding and library workspaces.
+
 All counts are PER DEVICE, as in the reference's partitioned HLO: a
 replicated product counts its full FLOPs on every device (which is how the
 roofline's ``useful_ratio`` catches redundant compute), a column-sharded
@@ -34,6 +50,7 @@ group (`launch/dryrun.py`) and nothing is computed or moved.
 from __future__ import annotations
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -58,6 +75,9 @@ _COLLECTIVE_NAMES = (
 )
 _COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd", "c10d",
                           "_dtensor")
+# ops whose result wraps its input's storage on a device; their meta
+# kernel allocates a new one, which takes the input's bytes over here
+_WRAP_OPS = {"_wrap_tensor_autograd"}
 # ops that move nothing: metadata, waits and tensor aliases
 _FREE_OPS = {"detach", "alias", "lift_fresh", "_local_scalar_dense", "wait_tensor",
              "set_", "resize_", "empty", "empty_strided", "empty_like", "sym_size",
@@ -65,6 +85,14 @@ _FREE_OPS = {"detach", "alias", "lift_fresh", "_local_scalar_dense", "wait_tenso
 
 
 class HloSummary(dict):
+    """The reference's keys; the memory figures are attributes:
+    ``peak_bytes``, ``result_bytes``, ``allocations`` (each allocating op's
+    name and new bytes, in order) and the step's ``result``."""
+
+    peak_bytes = result_bytes = 0
+    allocations = ()
+    result = None
+
     @property
     def collective_bytes(self) -> float:
         return sum(v for k, v in self.items() if k.startswith("coll/"))
@@ -87,6 +115,26 @@ def tensor_bytes(tree) -> int:
     return total
 
 
+def _local_tensors(tree):
+    """The plain tensors of ``tree``: a DTensor's local shard, the tensor an
+    AsyncCollectiveTensor wraps, a module's parameters, buffers and
+    gradients."""
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor
+    from torch.distributed.tensor import DTensor
+
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, torch.nn.Module):
+            yield from _local_tensors([*t.parameters(), *t.buffers(),
+                                       *(p.grad for p in t.parameters())])
+            continue
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+        if isinstance(t, AsyncCollectiveTensor):
+            t = t.elem
+        if isinstance(t, torch.Tensor):
+            yield t
+
+
 def _collective_kind(func) -> str | None:
     if func.namespace not in _COLLECTIVE_NAMESPACES:
         return None
@@ -98,12 +146,59 @@ def _collective_kind(func) -> str | None:
 
 
 class _Counter(TorchDispatchMode):
-    def __init__(self, summary: HloSummary):
+    def __init__(self, summary: HloSummary, state=()):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
         self.summary = summary
         self.flops = flop_registry
+        # storages that exist before the step: weak references keep their
+        # addresses from being reused while the step runs
+        self.existing = {}
+        for t in _local_tensors(state):
+            s = t.untyped_storage()
+            self.existing.setdefault(s._cdata, StorageWeakRef(s))
+        self.live = {}        # storage address -> [weak reference, nbytes]
+        self.live_bytes = 0   # an upper bound until `_sweep` drops the dead
+        summary.allocations = []
+
+    def _sweep(self) -> None:
+        dead = [k for k, (ref, _) in self.live.items() if ref.expired()]
+        for k in dead:
+            self.live_bytes -= self.live.pop(k)[1]
+
+    def _allocate(self, name, args, out) -> None:
+        new = 0
+        for t in _local_tensors(out):
+            st = t.untyped_storage()
+            key, n = st._cdata, st.nbytes()
+            if key in self.existing or key in self.live:
+                continue
+            if name in _WRAP_OPS:
+                src = args[0].untyped_storage()._cdata
+                if src in self.existing:
+                    self.existing[key] = StorageWeakRef(st)
+                    continue
+                if src in self.live:
+                    n, self.live[src][1] = self.live[src][1], 0
+                    self.live[key] = [StorageWeakRef(st), n]
+                    continue
+            self.live[key] = [StorageWeakRef(st), n]
+            new += n
+        if not new:
+            return
+        s = self.summary
+        s.allocations.append((name, new))
+        self.live_bytes += new
+        if self.live_bytes > s.peak_bytes:    # a new peak only if the live hold it
+            self._sweep()
+            s.peak_bytes = max(s.peak_bytes, self.live_bytes)
+
+    def result_bytes(self, result) -> int:
+        """Bytes of the step's storages that ``result`` holds."""
+        self._sweep()
+        keys = {t.untyped_storage()._cdata for t in _local_tensors(result)}
+        return sum(self.live[k][1] for k in keys if k in self.live)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -117,6 +212,9 @@ class _Counter(TorchDispatchMode):
         # DTensor's sharding propagation runs ops on fake tensors: not a step's
         if any(issubclass(t, FakeTensor) for t in types):
             return out
+        name = func._schema.name.split("::")[-1]
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is None:
+            self._allocate(name, args, out)
         s = self.summary
         kind = _collective_kind(func)
         if kind is not None:
@@ -124,7 +222,6 @@ class _Counter(TorchDispatchMode):
             s[f"coll/{kind}"] += nbytes
             s["largest_collective_bytes"] = max(s["largest_collective_bytes"], nbytes)
             return out
-        name = func._schema.name.split("::")[-1]
         if func.overloadpacket in self.flops:
             s["dot_flops"] += float(self.flops[func.overloadpacket](*args, **kwargs,
                                                                     out_val=out))
@@ -134,14 +231,18 @@ class _Counter(TorchDispatchMode):
 
 
 def analyze_step(fn, *args, **kwargs) -> HloSummary:
-    """Run ``fn(*args, **kwargs)`` once and count its per-device work.
-    Returns the summary; the step's own result is dropped."""
+    """Run ``fn(*args, **kwargs)`` once and count its per-device work and
+    memory; the tensors reachable from ``args`` and ``kwargs`` are the
+    step's state, which exists before it.  Returns the summary, with the
+    step's result as ``result``."""
     summary = HloSummary()
     summary.update({f"coll/{op}": 0.0 for op in COLLECTIVE_OPS})
     summary["dot_flops"] = 0.0
     summary["hbm_bytes"] = 0.0
     summary["dynamic_trip_warnings"] = 0.0
     summary["largest_collective_bytes"] = 0.0
-    with _Counter(summary):
-        fn(*args, **kwargs)
+    counter = _Counter(summary, (args, kwargs))
+    with counter:
+        summary.result = fn(*args, **kwargs)
+    summary.result_bytes = counter.result_bytes(summary.result)
     return summary

@@ -11,7 +11,9 @@ reaches another test:
     train, AdamW's moments) equal the sum over the reference's
     ``abstract_params`` (and ``adamw_init``) of each leaf's bytes divided
     by the shard factor of its reference spec; the record's
-    ``argument_size_in_bytes`` adds the batch (or token and cache);
+    ``argument_size_in_bytes`` adds the batch (or token and cache); its
+    ``temp_size_in_bytes`` is measured and ``alias_size_in_bytes`` is the
+    parameters and moments a train step updates in place (0 elsewhere);
   * `analyze_step`: a plain chain counts 2·m·k·n per product; on a fake
     world of 4 a replicated product counts its full FLOPs per device and a
     column-sharded one a quarter, and a sharded sum moves collective bytes;
@@ -130,7 +132,9 @@ def test_small_mesh_cell(arch, kind, tmp_path):
     assert parts.get("opt", 0) == want["opt"], (parts, want)
     mem = rec["memory_analysis"]
     assert mem["argument_size_in_bytes"] == sum(parts.values())
-    assert "temp_size_in_bytes" not in mem and "not measured" in rec["memory_analysis_note"]
+    assert mem["temp_size_in_bytes"] > 0 and "memory_analysis_note" not in rec
+    assert mem["alias_size_in_bytes"] == (parts["params"] + parts["opt"]
+                                          if kind == "train" else 0), (mem, parts)
     assert rec["hlo"]["dot_flops"] > 0 and rec["hlo"]["hbm_bytes"] > 0
     assert rec["hlo"]["dynamic_trip_warnings"] == 0
     assert rec["cost_analysis"]["flops"] == rec["hlo"]["dot_flops"]
@@ -158,7 +162,8 @@ RECORD = {"arch": "smollm-360m", "shape": "train_4k", "mesh": "pod", "kind": "tr
           "seq_len": 4096, "global_batch": 256, "params": 361_821_120,
           "active_params": 361_821_120, "compile_s": 1.5, "devices": 256,
           "hlo": {"dot_flops": 3.2e13, "hbm_bytes": 4.1e11}, "collective_bytes": 2.2e10,
-          "memory_analysis": {"argument_size_in_bytes": 7e8, "output_size_in_bytes": 7e8}}
+          "memory_analysis": {"argument_size_in_bytes": 7e8, "output_size_in_bytes": 7e8,
+                              "temp_size_in_bytes": 1.5e9, "alias_size_in_bytes": 7e8}}
 
 
 def test_roofline_is_the_references_with_h100_peaks(tmp_path, monkeypatch):
@@ -173,6 +178,7 @@ def test_roofline_is_the_references_with_h100_peaks(tmp_path, monkeypatch):
     got, want = roofline.analyze_record(RECORD), jroof.analyze_record(RECORD)
     assert got == want
     assert got["compute_s"] == 3.2e13 / 989.4e12
+    assert got["mem_gb_per_dev"] == (7e8 + 1.5e9 + 7e8) / 1e9   # argument + temp + output
     assert got["dominant"] == "collective"
     skipped = dict(RECORD, skipped="full-attention arch")
     assert roofline.analyze_record(skipped) is None

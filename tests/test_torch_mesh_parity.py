@@ -16,7 +16,13 @@ Each side counts one train step per device, in a subprocess of its own (as
 Both count per-device dot FLOPs and per-device collective result bytes;
 the largest single collective is, in the reference, the largest result
 shape of a collective instruction in the HLO, and in the port
-``largest_collective_bytes``.
+``largest_collective_bytes``.  Each side's ``temp_size_in_bytes`` is
+printed, and the port's held within [0.25, 4] times the reference's (the
+scan families' only below 4x: as for the FLOPs, the reference's chunked
+einsums are another algorithm, which holds more): the reference's from
+``compiled.memory_analysis()``, the port's from `analyze_step`'s peak
+(`dryrun.memory_analysis`).  The port runs the plain attention chain op by
+op, where XLA fuses it, so its temporaries are the larger.
 
 Cases: the six families, reduced, on a (2, 4) mesh (train, B 4, S 64);
 reduced smollm with 6 query heads, which the 4-way "model" axis does not
@@ -89,8 +95,9 @@ flags = RuntimeFlags(use_pallas=False, interpret=False, remat=True, mesh=mesh,
                      dp=dp_axes(mesh))
 fn, args, in_shardings, out_shardings = build_cell(cfg, shape, mesh, flags)
 with mesh:
-    text = jax.jit(fn, in_shardings=in_shardings,
-                   out_shardings=out_shardings).lower(*args).compile().as_text()
+    compiled = jax.jit(fn, in_shardings=in_shardings,
+                       out_shardings=out_shardings).lower(*args).compile()
+text = compiled.as_text()
 hlo = hlo_analysis.analyze_hlo(text)
 largest = 0
 for line in text.splitlines():
@@ -98,7 +105,8 @@ for line in text.splitlines():
     if parts and parts[2].replace("-start", "") in hlo_analysis.COLLECTIVE_OPS:
         largest = max(largest, hlo_analysis._shape_bytes(parts[1]))
 print(json.dumps({"dot_flops": hlo["dot_flops"],
-                  "collective_bytes": hlo.collective_bytes, "largest": largest}))
+                  "collective_bytes": hlo.collective_bytes, "largest": largest,
+                  "temp": compiled.memory_analysis().temp_size_in_bytes}))
 """
 
 PORT = CELL + r"""
@@ -118,7 +126,8 @@ dryrun.fake_world(int(np.prod(mesh_shape)))
 mesh = init_device_mesh("cpu", tuple(mesh_shape), mesh_dim_names=("data", "model"))
 flags = RuntimeFlags(use_kernels=False, remat=True, mesh=mesh, dp=dp_axes(mesh))
 fn, args, _, _ = build_cell(cfg, shape, mesh, flags)
-hlo = hlo_analysis.analyze_step(lambda: fn(*args))
+hlo = hlo_analysis.analyze_step(fn, *args)
+temp = dryrun.memory_analysis(args, hlo)["temp_size_in_bytes"]
 
 # the gradients as the backward pass leaves them, then the optimizer's collectives
 model, opt, batch = args
@@ -132,7 +141,8 @@ clip = hlo_analysis.analyze_step(
     lambda: clip_by_global_norm([p.grad for p in model.parameters()], 1.0))
 adamw = hlo_analysis.analyze_step(lambda: adamw_update(model, opt, 1e-3))
 print(json.dumps({"dot_flops": hlo["dot_flops"], "collective_bytes": hlo.collective_bytes,
-                  "largest": hlo["largest_collective_bytes"], "off_placement": off,
+                  "largest": hlo["largest_collective_bytes"], "temp": temp,
+                  "off_placement": off,
                   "grads": sum(p.grad is not None for p in model.parameters()),
                   "clip_largest": clip["largest_collective_bytes"],
                   "adamw_collective_bytes": adamw.collective_bytes}))
@@ -160,7 +170,13 @@ def test_port_divides_the_work_as_the_reference(case):
     arch = CASES[case][0]
     flops = port["dot_flops"] / ref["dot_flops"]
     coll = port["collective_bytes"] / ref["collective_bytes"]
+    temp = port["temp"] / ref["temp"]
     what = (case, ref, port)
+    print(f"{case}: temp_size_in_bytes, port {port['temp']} / reference {ref['temp']} = "
+          f"{temp:.3f}")
+    assert temp <= 4, what    # eager temporaries against XLA's fused ones
+    if arch not in SCAN_FAMILIES:  # the reference's chunked einsums hold more than
+        assert temp >= 0.25, what  # the port's elementwise scan
     if case == "granite-8b-pod":
         assert abs(flops - 1) <= 0.05, what
         assert coll <= 1.10, what
