@@ -31,6 +31,8 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch.spans import span
+
 from .program import (
     OP_EDGE,
     OP_FINAL,
@@ -153,10 +155,12 @@ def execute_numpy(prog: Program, b: np.ndarray) -> np.ndarray:
 
 
 def _to_device(b, device: torch.device) -> torch.Tensor:
-    """A RHS as a float32 tensor on ``device`` (no copy when it already is)."""
-    if not isinstance(b, torch.Tensor):
-        b = torch.from_numpy(np.asarray(b))
-    return b.to(device=device, dtype=torch.float32)
+    """A RHS as a float32 tensor on ``device`` (no copy when it already is);
+    span ``exec.h2d``."""
+    with span("exec.h2d"):
+        if not isinstance(b, torch.Tensor):
+            b = torch.from_numpy(np.asarray(b))
+        return b.to(device=device, dtype=torch.float32)
 
 
 def build_solve_cols(prog: Program, width: int, device=None):

@@ -86,6 +86,8 @@ from collections import OrderedDict
 
 import numpy as np
 
+from repro_torch.spans import span, spanned
+
 from .csr import TriCSR, serial_solve
 from .errors import (
     BackendExecutionError,
@@ -234,11 +236,14 @@ class ProgramCache:
         return ent
 
     # ------------------------------------------------------------------
+    @spanned("serve.cache_get")
     def get(self, mat: TriCSR) -> Program:
         """The compiled program for ``mat``'s pattern+values, through the
         tiers: memory LRU -> disk rehydrate -> compile (write-through)."""
-        fp = pattern_fingerprint(mat, self.schedule)
-        vcrc = _values_crc(mat)
+        with span("serve.fingerprint"):
+            fp = pattern_fingerprint(mat, self.schedule)
+        with span("serve.values_crc"):
+            vcrc = _values_crc(mat)
         ent = self._entry(fp, mat.name)
         cached = self._mem.get(fp)
         stale: Program | None = None
@@ -747,6 +752,7 @@ class SolveService:
             return {"mesh": self.mesh}
         return {"device": self.device}
 
+    @spanned("serve.flush")
     def _flush(self, matrix_id: str, now: float, reason: str,
                count: int | None = None) -> None:
         bucket = self._pending[matrix_id]
@@ -769,14 +775,15 @@ class SolveService:
         t0 = self._timer() if self._timer is not None else 0.0
         err: Exception | None = None
         stage = ""
-        if self.resilience is None:
-            solve = self._solver(prog, k)
-            x = host_array(solve(bmat))
-        else:
-            try:
-                x, stage = self._resilient_solve(matrix_id, prog, bmat, k)
-            except BackendExecutionError as e:
-                err, x = e, None
+        with span("serve.solve"):
+            if self.resilience is None:
+                solve = self._solver(prog, k)
+                x = host_array(solve(bmat))
+            else:
+                try:
+                    x, stage = self._resilient_solve(matrix_id, prog, bmat, k)
+                except BackendExecutionError as e:
+                    err, x = e, None
         dt = (self._timer() - t0) if self._timer is not None else 0.0
         index = st.flush_count()
         if reason == FLUSH_FULL:

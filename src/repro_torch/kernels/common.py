@@ -6,7 +6,8 @@
   with a plain C interface, ``build/lib<name>-<tag>.so`` at the repository
   root, where the tag hashes the source and the flags: an edited source is
   rebuilt, an unchanged one reused.  The compiler's output is kept beside
-  it (``.log``).  The families load it with ctypes.
+  it (``.log``), the seconds a build took in `BUILD_SECONDS`.  The families
+  load it with ctypes.
 """
 
 from __future__ import annotations
@@ -15,12 +16,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
 
 __all__ = ["resolve_device", "build_library", "build_libraries", "BUILD_DIR",
-           "BUILD_LOGS", "NVCC_FLAGS"]
+           "BUILD_LOGS", "BUILD_SECONDS", "NVCC_FLAGS"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -29,6 +31,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (``-Xptxas -v``: registers, shared memory and spills per kernel), read
 # back from its ``.log`` when the library is reused
 BUILD_LOGS: dict[str, str] = {}
+# name -> seconds this process waited on ``nvcc`` for the library beyond
+# the libraries of the same call awaited before it, so the sum over a call
+# is its wall time from the first ``nvcc`` to the last (builds run at once
+# and are not counted twice); 0.0 where the process found it built (a
+# build earlier in the process keeps its seconds)
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -70,11 +78,13 @@ def build_libraries(specs: dict[str, Path]) -> dict[str, Path]:
     """
     paths = {name: _lib_path(name, Path(src)) for name, src in specs.items()}
     procs = {}
+    t = time.perf_counter()
     for name, path in paths.items():
         if path.exists():
             log = path.with_suffix(".log")
             if log.exists():
                 BUILD_LOGS[name] = log.read_text()
+            BUILD_SECONDS.setdefault(name, 0.0)
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -84,6 +94,8 @@ def build_libraries(specs: dict[str, Path]) -> dict[str, Path]:
     failed = []
     for name, (tmp, proc) in procs.items():
         BUILD_LOGS[name] = proc.communicate()[0]
+        now = time.perf_counter()
+        BUILD_SECONDS[name], t = now - t, now
         if proc.returncode != 0:
             failed.append(f"nvcc failed to build {Path(specs[name]).name}:\n"
                           f"{BUILD_LOGS[name]}")

@@ -41,6 +41,7 @@ from repro_torch.core.errors import PlacementInfeasibleError
 from repro_torch.core.executor import _psum_slots, as_batch
 from repro_torch.core.program import SRC_BITS, Program, decode_instructions
 from repro_torch.kernels.common import resolve_device
+from repro_torch.spans import span
 
 from .kernel import (
     MAX_SMEM_BYTES,
@@ -337,16 +338,18 @@ def build_solver_cols(
         prog, placement="resident")["total"] <= smem_limit_bytes
 
     def solve_cols(bmat: torch.Tensor) -> torch.Tensor:
-        bp = torch.zeros((n_rows, width), dtype=torch.float32, device=dev)
-        bp[:n] = bmat
-        if mode == "resident":
-            x = sptrsv_cuda(instr, values, bp, num_slots=n_slots,
-                            x_in_smem=x_in_smem, cols_per_cta=COLS_PER_CTA)
-        else:
-            x = sptrsv_cuda_blocked(
-                instr, values, bp, window=plan.window, stride=plan.stride,
-                cycles_per_block=cycles_per_block, num_slots=n_slots,
-                cols_per_cta=COLS_PER_CTA)
+        with span("sptrsv.rhs_stage"):
+            bp = torch.zeros((n_rows, width), dtype=torch.float32, device=dev)
+            bp[:n] = bmat
+        with span("sptrsv.launch"):
+            if mode == "resident":
+                x = sptrsv_cuda(instr, values, bp, num_slots=n_slots,
+                                x_in_smem=x_in_smem, cols_per_cta=COLS_PER_CTA)
+            else:
+                x = sptrsv_cuda_blocked(
+                    instr, values, bp, window=plan.window, stride=plan.stride,
+                    cycles_per_block=cycles_per_block, num_slots=n_slots,
+                    cols_per_cta=COLS_PER_CTA)
         return x[:n]
 
     solve_cols.placement = mode

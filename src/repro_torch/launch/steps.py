@@ -14,7 +14,6 @@ jitted step returns new parameters and state beside them.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.distributed.sharding import (
     batch_placements,
@@ -37,6 +36,7 @@ from repro_torch.models import (
     train_forward,
 )
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, cosine_warmup
+from repro_torch.spans import span
 
 from .shapes import ShapeSpec
 
@@ -96,16 +96,16 @@ before the clip reads it.  ``batch``: ``tokens``,
         model.requires_grad_(True)
         model.zero_grad(set_to_none=True)
         extra = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
-        with record_function(SPANS[0]):
+        with span(SPANS[0]):
             loss, metrics = train_forward(model, batch["tokens"], batch["labels"], cfg,
                                           flags, extra)
-        with record_function(SPANS[1]):
+        with span(SPANS[1]):
             loss.backward()
             reduce_grads(model)    # each gradient once, to its parameter's placements
-        with record_function(SPANS[2]):
+        with span(SPANS[2]):
             gnorm = clip_by_global_norm([p.grad for p in model.parameters()], clip_norm)
         step_lr = cosine_warmup(opt_state["step"], lr, warmup, total)
-        with record_function(SPANS[3]):
+        with span(SPANS[3]):
             adamw_update(model, opt_state, step_lr)
         model.zero_grad(set_to_none=True)
         out = dict(metrics)

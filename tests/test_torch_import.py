@@ -9,6 +9,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -170,6 +171,35 @@ def test_reused_library_keeps_its_compiler_output(tmp_path, monkeypatch):
     monkeypatch.setattr(common, "_nvcc", lambda: pytest.fail("rebuilt"))
     assert common.build_library("k", src) == path
     assert "Used 40 registers" in common.BUILD_LOGS["k"]
+
+
+def test_build_seconds_count_builds_that_overlap_once(tmp_path, monkeypatch):
+    """Two libraries built in one call share the call's wall time: their
+    `BUILD_SECONDS` add up to no more than it, though each ``nvcc`` took
+    about all of it."""
+    from repro_torch.kernels import common
+
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\nsleep 1\n"
+                    "while [ \"$1\" != -o ]; do shift; done\n"
+                    "echo lib > \"$2\"\n")
+    fake.chmod(0o755)
+    srcs = {}
+    for name in ("a", "b"):
+        srcs[name] = tmp_path / f"{name}.cu"
+        srcs[name].write_text(f"// kernel {name}\n")
+    monkeypatch.setattr(common, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(common, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(common, "BUILD_LOGS", {})
+    monkeypatch.setattr(common, "BUILD_SECONDS", {})
+    t0 = time.perf_counter()
+    common.build_libraries(srcs)
+    wall = time.perf_counter() - t0
+    secs = dict(common.BUILD_SECONDS)
+    assert secs.keys() == {"a", "b"} and min(secs.values()) >= 0.0
+    assert 1.0 <= sum(secs.values()) <= wall
+    common.build_libraries(srcs)               # found built: keeps its seconds
+    assert common.BUILD_SECONDS == secs
 
 
 def test_quickstart_runs_on_the_cpu():
