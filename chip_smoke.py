@@ -388,14 +388,16 @@ def _staged_launch(prog, core, bmat):
     kw = {"num_slots": _psum_slots(prog)}
     if blocked:
         kw.update(window=core.plan.window, stride=core.plan.stride, cycles_per_block=128)
-        name, wrapper, plain = ("sptrsv_cuda_blocked", kernel.sptrsv_cuda_blocked,
-                                kernel.sptrsv_blocked_plain)
-        kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA)
-    else:
-        name, wrapper, plain = "sptrsv_cuda", kernel.sptrsv_cuda, kernel.sptrsv_plain
-        kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA, x_in_smem=core.x_in_smem)
-    return (name, lambda: wrapper(instr, values, bp, **kernel_kw),
-            lambda: plain(instr, values, bp, **kw), bp, kw)
+        name, wrapper = "sptrsv_cuda_blocked", kernel.sptrsv_cuda_blocked
+        kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA, program_lanes=prog.num_cus)
+        # the twin on the stream as staged, scattered back where compacted
+        full = kernel.expand_lanes(instr, values, prog.num_cus) \
+            if core.lanes < prog.num_cus else (instr, values)
+        return (name, lambda: wrapper(instr, values, bp, **kernel_kw),
+                lambda: kernel.sptrsv_blocked_plain(*full, bp, **kw), bp, kw)
+    kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA, x_in_smem=core.x_in_smem)
+    return ("sptrsv_cuda", lambda: kernel.sptrsv_cuda(instr, values, bp, **kernel_kw),
+            lambda: kernel.sptrsv_plain(instr, values, bp, **kw), bp, kw)
 
 
 def _sptrsv_bound_ms(prog, nb):
@@ -457,10 +459,11 @@ def main() -> int:
     for kname_, regs, st, ld, sm in ptxas:
         print(f"[sptrsv ptxas] {kname_}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B, static smem {sm} B")
-    # 2 planes x 4 lane widths x (x in shared or device memory), and 2 x 4
+    # 2 planes x 4 lane widths x (x in shared or device memory); blocked 2 x 4,
+    # and 3 widths (32, 64, 128 slots) of a lane-compacted stream
     families = [k.split("<")[0] for k, *_ in ptxas]
-    assert (families.count("resident_kernel"), families.count("blocked_kernel")) == (16, 8), \
-        f"ptxas reported {len(ptxas)} SpTRSV kernels, not the 16 resident and 8 blocked"
+    assert (families.count("resident_kernel"), families.count("blocked_kernel")) == (16, 11), \
+        f"ptxas reported {len(ptxas)} SpTRSV kernels, not the 16 resident and 11 blocked"
     assert all(st == 0 and ld == 0 for _, _, st, ld, _ in ptxas), "ptxas spilled"
 
     wrappers = {"sptrsv_cuda": kernel.sptrsv_cuda,
@@ -479,10 +482,14 @@ def main() -> int:
         bmat = np.random.default_rng(SEED).standard_normal((mat.n, B)).astype(np.float32)
         for w in wrappers.values():
             w.launches = 0
+        kernel.sptrsv_cuda_blocked.compacted = 0
         x = solver(bmat)
         torch.cuda.synchronize()
         launches = {k: w.launches for k, w in wrappers.items()}
         assert launches[kname] > 0, (name, launches)
+        # blocked launches that ran a lane-compacted stream
+        compacted = kernel.sptrsv_cuda_blocked.compacted
+        assert compacted <= launches["sptrsv_cuda_blocked"], (name, compacted, launches)
         x = x.cpu().numpy()
         assert x.shape == (mat.n, B) and np.isfinite(x).all(), name
         oracle = execute_numpy(prog, bmat)
@@ -500,7 +507,7 @@ def main() -> int:
         levels = int(dag.compute_levels(mat).max()) + 1
         print(f"{name}: n={mat.n} nnz={mat.nnz} emitted_cycles={prog.cycles} "
               f"DAG levels {levels}, compile {t_compile:.2f} s, placement {solver.placement}, "
-              f"launches {launches}, max abs err vs float64 program "
+              f"launches {launches}, compacted {compacted}, max abs err vs float64 program "
               f"{err_prog:.3e}, vs serial_solve {err_serial:.3e}, "
               f"solve through make_solver {solve_ms:.4f} ms", flush=True)
 
@@ -543,6 +550,7 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "matrix": name, "B": B,
             "placement": placement, "emitted_cycles": prog.cycles, "dag_levels": levels,
+            "compacted": compacted, "stream_lanes": core.lanes,
             "solve_ms": solve_ms, "make_solver_overhead_ms": solve_ms - ms,
             "us_per_cycle": ms * 1e3 / prog.cycles,
             "sm_clock_mhz": sm_mhz, "power_limit_w": power_limit,

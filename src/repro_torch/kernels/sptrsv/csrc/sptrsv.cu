@@ -33,8 +33,10 @@
 //     the chain.  Shared memory is addressed through 32-bit addresses
 //     computed once, and a CTA holds at most 8 warps so a thread may use
 //     255 registers: with fewer, ptxas re-derives bases every cycle.
-//     What is left bounds the kernels: one warp issues the cycle's ~57
-//     instructions (two lanes a thread at P = 64).
+//     What is left bounds the kernels: the chain and the shared-memory
+//     accesses queued around it, not the instruction count (halving the
+//     lanes a thread saved ~5 of ~115 SM clocks a cycle on the FEM band;
+//     see the lane-compacted stream below for what did).
 //   * The instruction stream enters shared memory by cp.async: each thread
 //     copies its own lanes' words and values (LPT*4 bytes per plane and
 //     cycle) into a per-warp ring, CHUNK cycles per commit group, LEAD
@@ -69,6 +71,33 @@
 // what it brings in is never read.  After the last block the whole window
 // is flushed.
 //
+// Lane-compacted stream (blocked kernel only).  A program's cycles may hold
+// few live words (op or psum control not 0): on the FEM band at P = 64 no
+// cycle holds more than 28, and 83% of the lanes are NOPs.  Staging
+// (kernels/sptrsv/ops.py) then packs each cycle's live words into the
+// first of W = 32 * LPT slots, W the smallest that holds the busiest cycle
+// and below P, so each thread runs LPT(W) words a cycle instead of LPT(P).
+// A compacted word has two planes: the row, and the upper field with the
+// word's original lane above it ([lane : 8] from bit 13); padding slots are
+// zero words (NOPs of lane 0, which change nothing).
+//   * A lane's words land on different threads from cycle to cycle, so its
+//     state is kept by lane in shared memory: the psum file
+//     [num_slots][lanes] (a word's slot at slot * lanes + lane) and the
+//     feedback fb[lanes], besides one zero word.
+//   * The decode picks the address of the word's psum input (its slot, its
+//     lane's fb, or the zero word), so after each __syncwarp the cycle
+//     loads two words side by side, the x row and that input, and the mux
+//     leaves the chain.  The slot of t + 1 is no longer read a cycle ahead:
+//     a lane may store a slot at t from one thread and load it at t + 1 on
+//     another (the band's program does so 3 times), and only the
+//     __syncwarp orders the two.
+//   * The ring takes the stream by 16-byte copies spread over the warp.
+//     Each thread's 4-byte copies of its own lanes (as run_stream does)
+//     took a third of a cycle on the band's program on an H100 (~34 of
+//     ~111 SM clocks); narrower lanes alone saved ~5.
+// Rounding and each lane's program order are unchanged, so x is bit for bit
+// that of the uncompacted stream.
+//
 // The C entry points launch on the caller's stream, do not synchronise and
 // return cudaGetLastError() (0 on success).
 
@@ -90,6 +119,8 @@ constexpr unsigned CT_LUT = (F_ZERO << 4) | (F_SLOT << 8) | ((F_ZERO | F_STORE) 
 // packed word layout (repro_torch/core/program.py)
 constexpr int SRC_BITS = 18;
 constexpr unsigned SRC_MASK = (1u << SRC_BITS) - 1;
+// a compacted word's lane, above the 13-bit upper field (kernel.py LANE_SHIFT)
+constexpr int LANE_SHIFT = 13;
 
 constexpr int CHUNK = 8;  // cycles per cp.async group and unrolled loop body
 
@@ -386,6 +417,168 @@ __device__ __forceinline__ unsigned zero_rf(float* rf, int words, int t) {
   return saddr(rf + t);
 }
 
+// ------------------------------------------------ the lane-compacted stream
+// Per warp: the psum file [num_slots][lanes], fb[lanes] and a zero word,
+// padded to 16 bytes, then the stream ring of a 2-plane stream of PP slots.
+template <int LPT>
+struct CompactLayout {
+  static __host__ __device__ int state_words(int num_slots, int lanes) {
+    return (num_slots * lanes + lanes + 1 + 3) & ~3;
+  }
+  static __host__ __device__ int fixed(int num_slots, int lanes) {
+    return state_words(num_slots, lanes) + Layout<2, LPT>::RING_WORDS;
+  }
+};
+
+// A compacted stream's per-warp ring: LEAD + 1 chunk slots, each a chunk's
+// words [CHUNK][2][PP] and then its values [CHUNK][PP] as they lie in device
+// memory, filled by 16-byte copies spread over the warp's threads.  So a
+// thread reads words that others copied, and the wait on the copies is
+// followed by a __syncwarp().
+template <int LPT>
+struct CompactStream {
+  static constexpr int PP = Lanes<LPT>::PP;
+  static constexpr int WORDS = CHUNK * 2 * PP;     // words of a chunk's two planes
+  static constexpr int SLOT = CHUNK * 3 * PP * 4;  // bytes per chunk slot
+  const uint32_t* instr;                           // [T, 2, PP]
+  const uint32_t* vals;                            // [T, PP]
+  unsigned ring;  // shared address of the warp's ring
+  unsigned mine;  // ring + this thread's slots' offset
+  int nch, t;
+
+  // chunks past the stream are copied as zero words
+  __device__ __forceinline__ void copy_chunk(int chunk, int slot) const {
+    const bool ok = chunk < nch;
+    const size_t c = ok ? (size_t)chunk : 0;
+    const unsigned dst = ring + slot * SLOT + 16 * t;
+    const uint32_t* wi = instr + c * WORDS + 4 * t;
+    const uint32_t* wv = vals + c * CHUNK * PP + 4 * t;
+#pragma unroll
+    for (int i = 0; i < WORDS / 128; ++i) cp_async<16>(dst + 512 * i, wi + 128 * i, ok);
+#pragma unroll
+    for (int i = 0; i < CHUNK * PP / 128; ++i)
+      cp_async<16>(dst + 4 * WORDS + 512 * i, wv + 128 * i, ok);
+  }
+
+  // the words of cycle u of the chunk in ring slot `slot` (this thread's slots)
+  __device__ __forceinline__ void load(int slot, int u, Raw<2, LPT>& r) const {
+    const unsigned a = mine + slot * SLOT;
+    lds_words<LPT>(a + u * 2 * PP * 4, r.w[0]);
+    lds_words<LPT>(a + (u * 2 + 1) * PP * 4, r.w[1]);
+    lds_words<LPT>(a + 4 * WORDS + u * PP * 4, r.v);
+  }
+};
+
+// shared addresses of a warp's per-lane state
+struct LaneState {
+  unsigned rf;    // psum slot 0 of lane 0
+  unsigned fb;    // fb[0]
+  unsigned zero;  // a word that stays 0
+  unsigned lanes;
+};
+
+// One cycle's decoded words of one thread, each of the lane it carries.
+template <int LPT>
+struct DecC {
+  unsigned x[LPT];     // the row the word names
+  unsigned rf[LPT];    // its lane's psum slot
+  unsigned in[LPT];    // its psum input: the slot, its lane's fb or the zero word
+  unsigned fb[LPT];    // its lane's fb
+  float v[LPT];
+  unsigned op[LPT];
+  unsigned st[LPT];    // F_STORE: the slot takes the lane's fb
+  unsigned live[LPT];  // op or psum control not 0: the word writes its lane's fb
+};
+
+template <int LPT>
+__device__ __forceinline__ void decode_compact(const Raw<2, LPT>& r, DecC<LPT>& d,
+                                               const SmemRows& rows, const LaneState& ls) {
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    // plane 1: [lane : 8][slot : 8][ctl : 3][op : 2]
+    const uint32_t w1 = r.w[1][k];
+    const unsigned lane = w1 >> LANE_SHIFT;
+    const unsigned f = CT_LUT >> (w1 & 0x1Cu);
+    d.x[k] = rows.addr(r.w[0][k]);
+    d.rf[k] = ls.rf + ((((w1 >> 5) & 0xFFu) * ls.lanes + lane) << 2);
+    d.fb[k] = ls.fb + (lane << 2);
+    d.in[k] = (f & F_ZERO) ? ls.zero : (f & F_SLOT) ? d.rf[k] : d.fb[k];
+    d.v[k] = __uint_as_float(r.v[k]);
+    d.op[k] = w1 & 3u;
+    d.st[k] = f & F_STORE;
+    d.live[k] = w1 & 0x1Fu;
+  }
+}
+
+// The blocked kernel's cycle loop over a compacted stream: run_stream's
+// chunks, ring and look-ahead of words, with the per-lane state above.
+// Cycle t reads its x rows and psum inputs (the chain), then the lanes' old
+// fb for the slot stores, decodes t + 2, loads the words of t + 3, stores
+// the slots, computes, stores x and fb and ends in __syncwarp().
+template <int LPT, class Hook>
+__device__ __forceinline__ void run_compact(const CompactStream<LPT>& st, const LaneState& ls,
+                                            const SmemRows& rows, Hook& hook) {
+  using L = Lanes<LPT>;
+#pragma unroll 1
+  for (int k = 0; k < L::LEAD; ++k) {
+    st.copy_chunk(k, k);
+    cp_async_commit();
+  }
+  cp_async_wait<L::LEAD - 1>();
+  __syncwarp();  // also publishes the zeroed state and the x set-up copies
+
+  Raw<2, LPT> raw;  // the words of t + 2
+  DecC<LPT> cur, nxt;
+  st.load(0, 0, raw);
+  decode_compact<LPT>(raw, cur, rows, ls);
+  st.load(0, 1, raw);
+  decode_compact<LPT>(raw, nxt, rows, ls);
+  st.load(0, 2, raw);
+
+  int slot = 0;  // ring slot of chunk cc
+#pragma unroll 1
+  for (int cc = 0; cc < st.nch; ++cc) {
+    const int prev = slot == 0 ? L::LEAD : slot - 1;
+    const int next = slot == L::LEAD ? 0 : slot + 1;
+    st.copy_chunk(cc + L::LEAD, prev);
+    cp_async_commit();
+    cp_async_wait<L::LEAD - 1>();
+    __syncwarp();  // the other threads' copies of chunk cc + 1 too
+    hook.at_chunk(cc);
+#pragma unroll
+    for (int u = 0; u < CHUNK; ++u) {
+      // the chain: this cycle's x rows and psum inputs, side by side
+      float xv[LPT], pv[LPT], old[LPT];
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        xv[k] = rows.load(cur.x[k]);
+        pv[k] = lds_f32(cur.in[k]);
+      }
+      // off the chain: the fb a slot store takes, the decode of t + 2, the
+      // words of t + 3, the slot stores (after the slot's load above)
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) old[k] = lds_f32(cur.fb[k]);
+      DecC<LPT> dn;
+      decode_compact<LPT>(raw, dn, rows, ls);
+      st.load(u + 3 < CHUNK ? slot : next, (u + 3) % CHUNK, raw);
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) sts_f32_if(cur.st[k], cur.rf[k], old[k]);
+      // no contraction into an FMA, as in run_stream
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const float e = __fadd_rn(pv[k], __fmul_rn(cur.v[k], xv[k]));
+        const float f = __fmul_rn(__fsub_rn(xv[k], pv[k]), cur.v[k]);
+        rows.store_if(cur.op[k] == OP_FINAL, cur.x[k], f);
+        sts_f32_if(cur.live[k], cur.fb[k], cur.op[k] == OP_EDGE ? e : pv[k]);
+      }
+      cur = nxt;
+      nxt = dn;
+      __syncwarp();
+    }
+    slot = next;
+  }
+}
+
 template <int PLANES, int LPT, bool X_IN_SMEM>
 __global__ void __launch_bounds__(32 * Lanes<LPT>::MAX_WARPS)
 resident_kernel(const uint32_t* __restrict__ instr, const uint32_t* __restrict__ vals,
@@ -455,19 +648,23 @@ struct Boundaries {
   }
 };
 
-template <int PLANES, int LPT>
+// COMPACT: the stream is lane-compacted (PLANES 2, P = PP slots a cycle) over
+// a program of `lanes` lanes.
+template <int PLANES, int LPT, bool COMPACT>
 __global__ void __launch_bounds__(32 * Lanes<LPT>::MAX_WARPS)
 blocked_kernel(const uint32_t* __restrict__ instr, const uint32_t* __restrict__ vals,
                const float* __restrict__ b, float* x, int T, int P, int B, int num_slots,
-               int window, int stride, int cycles_per_block, int ring_rows) {
+               int window, int stride, int cycles_per_block, int ring_rows, int lanes) {
   extern __shared__ __align__(16) uint32_t smem[];
   using Lay = Layout<PLANES, LPT>;
   const int t = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int col = blockIdx.x * nw + w;
-  const int fixed = Lay::fixed(num_slots), rfw = Lay::rf_words(num_slots);
+  const int fixed =
+      COMPACT ? CompactLayout<LPT>::fixed(num_slots, lanes) : Lay::fixed(num_slots);
+  const int rfw = COMPACT ? CompactLayout<LPT>::state_words(num_slots, lanes)
+                          : Lay::rf_words(num_slots);
   uint32_t* base = smem + (size_t)w * fixed;
   const unsigned rf_t = zero_rf(reinterpret_cast<float*>(base), rfw, t);
-  const Stream<PLANES, LPT> st{instr, vals, saddr(base + rfw) + 4 * LPT * t, T, P, t};
   float* ring = reinterpret_cast<float*>(smem + (size_t)nw * fixed +
                                          (size_t)w * (ring_rows + stride));
   float* bstage = ring + ring_rows;
@@ -483,7 +680,20 @@ blocked_kernel(const uint32_t* __restrict__ instr, const uint32_t* __restrict__ 
                   (unsigned)(ring_rows - 1), blk_chunks < Lanes<LPT>::LEAD};
   hook.at_chunk(0);  // block 0 begins: b of boundary 1 in flight
   cp_async_commit();
-  run_stream<PLANES, LPT>(st, rf_t, SmemRows{saddr(ring), mask}, T / CHUNK, hook);
+  if constexpr (COMPACT) {
+    static_assert(PLANES == 2, "a compacted stream has two planes");
+    // opaque to ptxas, which would otherwise re-derive them from the thread
+    // index inside the cycle loop (~1% of the cycle on the band's program)
+    unsigned rf = saddr(base), cring = saddr(base + rfw), xs = saddr(ring);
+    asm volatile("" : "+r"(rf), "+r"(cring), "+r"(xs));
+    const unsigned fb = rf + 4u * num_slots * lanes;
+    run_compact<LPT>(CompactStream<LPT>{instr, vals, cring, cring + 4 * LPT * t, T / CHUNK, t},
+                     LaneState{rf, fb, fb + 4u * lanes, (unsigned)lanes},
+                     SmemRows{xs, mask}, hook);
+  } else {
+    const Stream<PLANES, LPT> st{instr, vals, saddr(base + rfw) + 4 * LPT * t, T, P, t};
+    run_stream<PLANES, LPT>(st, rf_t, SmemRows{saddr(ring), mask}, T / CHUNK, hook);
+  }
 
   // last window: every row still in the ring is final
   __syncwarp();
@@ -517,17 +727,19 @@ cudaError_t resident(const void* instr, const void* vals, const void* b, void* x
   return cudaGetLastError();
 }
 
-template <int PLANES, int LPT>
+template <int PLANES, int LPT, bool COMPACT>
 cudaError_t blocked(const void* instr, const void* vals, const void* b, void* x, int T, int P,
                     int B, int num_slots, int bt, int window, int stride, int cycles_per_block,
-                    int ring_rows, cudaStream_t stream) {
-  const size_t smem = smem_bytes<PLANES, LPT>(num_slots, ring_rows + stride, bt);
-  auto kernel = blocked_kernel<PLANES, LPT>;
+                    int ring_rows, int lanes, cudaStream_t stream) {
+  const size_t fixed =
+      COMPACT ? CompactLayout<LPT>::fixed(num_slots, lanes) : Layout<PLANES, LPT>::fixed(num_slots);
+  const size_t smem = (fixed + ring_rows + stride) * 4 * bt;
+  auto kernel = blocked_kernel<PLANES, LPT, COMPACT>;
   cudaError_t err = launch_prep(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<B / bt, 32 * bt, smem, stream>>>((const uint32_t*)instr, (const uint32_t*)vals,
                                             (const float*)b, (float*)x, T, P, B, num_slots,
-                                            window, stride, cycles_per_block, ring_rows);
+                                            window, stride, cycles_per_block, ring_rows, lanes);
   return cudaGetLastError();
 }
 
@@ -566,16 +778,29 @@ int sptrsv_resident(const void* instr, const void* vals, const void* b, void* x,
 
 // b and x [n_hbm, B] f32 with n_hbm = (T / cycles_per_block - 1) * stride + window;
 // cycles_per_block a multiple of CHUNK; ring_rows is the power of two >= window.
+// `lanes` is the program's P: a stream of fewer slots (P = 32, 64 or 128, two
+// planes) is lane-compacted.
 int sptrsv_blocked(const void* instr, const void* vals, const void* b, void* x, int T,
                    int planes, int P, int B, int num_slots, int bt, int window, int stride,
-                   int cycles_per_block, int ring_rows, void* stream) {
+                   int cycles_per_block, int ring_rows, int lanes, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int lpt = lanes_per_thread(P);
-#define SPTRSV_BLOCKED(PL, LP)                                                            \
-  blocked<PL, LP>(instr, vals, b, x, T, P, B, num_slots, bt, window, stride, cycles_per_block, \
-                  ring_rows, s)
+#define SPTRSV_BLOCKED_AS(PL, LP, C)                                                      \
+  blocked<PL, LP, C>(instr, vals, b, x, T, P, B, num_slots, bt, window, stride,           \
+                     cycles_per_block, ring_rows, lanes, s)
+  if (lanes != P) {
+    if (planes != 2 || P != 32 * lpt || lanes < P) return (int)cudaErrorInvalidValue;
+    switch (lpt) {
+      case 1: return (int)SPTRSV_BLOCKED_AS(2, 1, true);
+      case 2: return (int)SPTRSV_BLOCKED_AS(2, 2, true);
+      case 4: return (int)SPTRSV_BLOCKED_AS(2, 4, true);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+#define SPTRSV_BLOCKED(PL, LP) SPTRSV_BLOCKED_AS(PL, LP, false)
   SPTRSV_DISPATCH(planes, lpt, SPTRSV_BLOCKED)
 #undef SPTRSV_BLOCKED
+#undef SPTRSV_BLOCKED_AS
 }
 
 }  // extern "C"

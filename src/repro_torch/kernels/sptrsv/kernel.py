@@ -10,7 +10,10 @@ design), each beside a plain PyTorch version of the same algorithm:
   * `sptrsv_cuda_blocked` replaces ``sptrsv_pallas_blocked``: a ring of
     ``window`` x rows in shared memory that advances ``stride`` rows per
     cycle block, with retired rows flushed to device memory.
-    Plain version: `sptrsv_blocked_plain` (the same window sweep).
+    Plain version: `sptrsv_blocked_plain` (the same window sweep).  It also
+    runs lane-compacted streams (`ops.compact_lanes`): each cycle's live
+    words packed into fewer slots, each carrying its lane; the plain path
+    scatters them back to their lanes first (`expand_lanes`).
 
 What bounds them on an H100: the cycle-serial dependency chain, (emitted
 cycles) x (latency of one cycle); the bytes and flops of a solve are far
@@ -25,7 +28,8 @@ so kernel and twin round identically.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its kernel
-launches in ``<wrapper>.launches``.  The CUDA library is built on first use
+launches in ``<wrapper>.launches`` (and `sptrsv_cuda_blocked` those of a
+compacted stream in ``.compacted``).  The CUDA library is built on first use
 (`build`, through `common.build_library`) with ``nvcc`` into ``build/`` at
 the repository root and loaded with ctypes.
 """
@@ -44,6 +48,7 @@ from repro_torch.core.program import (
     PS_RESET,
     PS_STORE_RESET,
     PS_SWAP,
+    SRC_BITS,
     decode_instructions,
 )
 from repro_torch.kernels.common import build_library
@@ -51,6 +56,7 @@ from repro_torch.kernels.common import build_library
 __all__ = [
     "build",
     "check_kernel_limits",
+    "expand_lanes",
     "lanes_per_thread",
     "max_cols_per_cta",
     "ring_rows",
@@ -60,6 +66,8 @@ __all__ = [
     "sptrsv_cuda_blocked",
     "sptrsv_plain",
     "sptrsv_blocked_plain",
+    "COMPACT_WIDTHS",
+    "LANE_SHIFT",
     "MAX_LANES",
     "MAX_SMEM_BYTES",
     "STREAM_CHUNK",
@@ -71,6 +79,9 @@ MAX_SLOTS = 256         # the packed word's 8-bit slot field
 MAX_SMEM_BYTES = 232448  # shared memory a Hopper CTA can use (227 KB)
 STREAM_CHUNK = 8        # csrc/sptrsv.cu CHUNK: cycles per cp.async group
 _ALIGN = 16             # bytes: the stream's cp.async copies
+COMPACT_WIDTHS = (32, 64, 128)  # slots a cycle of a lane-compacted stream
+LANE_SHIFT = 13         # csrc/sptrsv.cu: a compacted word's lane, above the upper field
+_UPPER_MASK = (1 << LANE_SHIFT) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -103,16 +114,24 @@ def ring_rows(window: int) -> int:
     return 1 << max(0, int(window) - 1).bit_length()
 
 
-def smem_bytes_per_column(p: int, planes: int, num_slots: int, x_words: int = 0) -> int:
+def smem_bytes_per_column(p: int, planes: int, num_slots: int, x_words: int = 0,
+                          lanes: int | None = None) -> int:
     """Shared memory of one column's warp: the psum register file
     ``[num_slots][32 * lanes]``, the stream ring ``[ring cycles][planes +
-    1][32 * lanes]`` and ``x_words`` x rows."""
+    1][32 * lanes]`` and ``x_words`` x rows.  For a stream of ``p`` slots
+    compacted from a program of ``lanes`` lanes (csrc/sptrsv.cu
+    `CompactLayout`), the psum file is ``[num_slots][lanes]``, beside the
+    feedback of each lane and a zero word, padded to 16 bytes."""
     row = 32 * lanes_per_thread(p)
-    return 4 * (num_slots * row + stream_ring_cycles(p) * (planes + 1) * row + x_words)
+    ring = stream_ring_cycles(p) * (planes + 1) * row
+    if lanes is None:
+        return 4 * (num_slots * row + ring + x_words)
+    return 4 * (-(-(num_slots * lanes + lanes + 1) // 4) * 4 + ring + x_words)
 
 
 def check_kernel_limits(p: int, planes: int, num_slots: int, cols_per_cta: int,
-                        cycles_per_block: int | None = None) -> None:
+                        cycles_per_block: int | None = None,
+                        lanes: int | None = None) -> None:
     """Raise ``ValueError`` for a launch the CUDA kernels cannot take.
 
     Pure (no device, no library): the CUDA branch of each wrapper calls it
@@ -123,9 +142,12 @@ def check_kernel_limits(p: int, planes: int, num_slots: int, cols_per_cta: int,
     register files and stream rings of the CTA's columns within
     `MAX_SMEM_BYTES`; for the blocked kernel, cycles_per_block >= 1, of any
     length (`sptrsv_cuda_blocked` pads a block to whole stream chunks).
-    The x rows a CTA keeps in shared memory are the
-    placement's budget (`ops.state_bytes`): a launch whose x does not fit
-    is refused by the card and raises ``RuntimeError``.
+    ``lanes`` (the blocked kernel only) names a lane-compacted stream of
+    ``p`` slots over a program of ``lanes`` > ``p`` lanes: two planes, ``p``
+    one of `COMPACT_WIDTHS`, ``lanes`` <= `MAX_LANES`.  The x rows a CTA
+    keeps in shared memory are the placement's budget (`ops.state_bytes`):
+    a launch whose x does not fit is refused by the card and raises
+    ``RuntimeError``.
     """
     if not 1 <= p <= MAX_LANES or p % lanes_per_thread(p):
         raise ValueError(f"the kernels take 1 <= P <= {MAX_LANES} lanes, above 32 a "
@@ -137,7 +159,12 @@ def check_kernel_limits(p: int, planes: int, num_slots: int, cols_per_cta: int,
     if not 1 <= cols_per_cta <= max_cols_per_cta(p):
         raise ValueError(f"cols_per_cta={cols_per_cta}: a CTA holds 1 to "
                          f"{max_cols_per_cta(p)} columns at P={p}")
-    need = cols_per_cta * smem_bytes_per_column(p, planes, num_slots)
+    if lanes is not None and not (planes == 2 and p in COMPACT_WIDTHS
+                                  and p < lanes <= MAX_LANES):
+        raise ValueError(f"a lane-compacted stream has 2 planes of {COMPACT_WIDTHS} "
+                         f"slots over more lanes, up to {MAX_LANES}; got {planes} "
+                         f"planes of {p} slots over {lanes} lanes")
+    need = cols_per_cta * smem_bytes_per_column(p, planes, num_slots, lanes=lanes)
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{cols_per_cta} columns need {need} bytes of shared memory for "
                          f"their psum files and stream rings, over {MAX_SMEM_BYTES}")
@@ -160,7 +187,7 @@ def build() -> ctypes.CDLL:
     lib.sptrsv_error_string.restype = ctypes.c_char_p
     lib.sptrsv_resident.argtypes = [_P] * 4 + [_I] * 8 + [_P]
     lib.sptrsv_resident.restype = _I
-    lib.sptrsv_blocked.argtypes = [_P] * 4 + [_I] * 10 + [_P]
+    lib.sptrsv_blocked.argtypes = [_P] * 4 + [_I] * 11 + [_P]
     lib.sptrsv_blocked.restype = _I
     _LIB = lib
     return lib
@@ -190,12 +217,12 @@ def _check_inputs(instr, values, b, num_slots: int) -> None:
 
 
 def _check_cuda(instr, values, b, num_slots: int, cols_per_cta: int,
-                cycles_per_block: int | None = None) -> None:
+                cycles_per_block: int | None = None, lanes: int | None = None) -> None:
     if b.device.type != "cuda":
         raise ValueError(f"the SpTRSV kernels run on CUDA or CPU tensors, "
                          f"got {b.device}")
     _, planes, p = instr.shape
-    check_kernel_limits(p, planes, num_slots, cols_per_cta, cycles_per_block)
+    check_kernel_limits(p, planes, num_slots, cols_per_cta, cycles_per_block, lanes)
     if b.shape[1] % cols_per_cta:
         raise ValueError(f"cols_per_cta={cols_per_cta} must divide the "
                          f"{b.shape[1]} RHS columns")
@@ -298,6 +325,31 @@ def sptrsv_blocked_plain(instr, values, b, *, window: int, stride: int,
     return x
 
 
+def expand_lanes(instr, values, lanes: int, planes: int = 2):
+    """``(instr, values)`` of a lane-compacted stream scattered back to its
+    ``lanes`` lanes: each live word (op or psum control not 0) to the lane
+    it carries, every other lane the zero word (a NOP of row 0, slot 0)
+    with value 0.  ``instr`` is ``[T, 2, W]`` (`ops.compact_lanes`: the row;
+    the upper field with the lane from `LANE_SHIFT`), ``values`` ``[T,
+    W]``; the result is ``[T, planes, lanes]`` (``planes=1`` packs each
+    word into one, every row then below ``2**SRC_BITS``)."""
+    t, _, w = instr.shape
+    upper = instr[:, 1]
+    live = (upper & 0x1F) != 0
+    cyc = torch.arange(t, device=instr.device)[:, None].expand(t, w)[live]
+    lane = (upper >> LANE_SHIFT)[live].long()
+    src, rest = instr[:, 0][live], (upper & _UPPER_MASK)[live]
+    out = instr.new_zeros((t, planes, lanes))
+    if planes == 1:
+        out[cyc, 0, lane] = src | (rest << SRC_BITS)
+    else:
+        out[cyc, 0, lane] = src
+        out[cyc, 1, lane] = rest
+    vals = values.new_zeros((t, lanes))
+    vals[cyc, lane] = values[live]
+    return out, vals
+
+
 def _check_sweep(instr, b, window, stride, cycles_per_block) -> None:
     t_pad = instr.shape[0]
     if cycles_per_block < 1 or t_pad % cycles_per_block:
@@ -367,7 +419,7 @@ def sptrsv_cuda(instr, values, b, *, num_slots: int, x_in_smem: bool = True,
 
 def sptrsv_cuda_blocked(instr, values, b, *, window: int, stride: int,
                         cycles_per_block: int, num_slots: int,
-                        cols_per_cta: int = 1):
+                        cols_per_cta: int = 1, program_lanes: int | None = None):
     """Row-blocked solve: ``b[n_hbm, B] -> x[n_hbm, B]`` (replaces
     ``sptrsv_pallas_blocked``).
 
@@ -379,31 +431,39 @@ def sptrsv_cuda_blocked(instr, values, b, *, window: int, stride: int,
     src field itself.  ``cycles_per_block`` may be any positive divisor of
     T: the kernel starts a block only at a `STREAM_CHUNK`, so a block of
     another length is padded with NOP cycles first (`_pad_blocks`, one
-    copy of the stream on the card).  One warp per column, ``cols_per_cta``
-    columns per CTA.  CPU tensors go to `sptrsv_blocked_plain`.
+    copy of the stream on the card).  ``program_lanes``, the program's P,
+    marks a stream of fewer slots as lane-compacted (`ops.compact_lanes`);
+    its launches are counted in ``.compacted`` too.  One warp per column,
+    ``cols_per_cta`` columns per CTA.  CPU tensors go to
+    `sptrsv_blocked_plain`, a compacted stream through `expand_lanes`.
     """
     _check_inputs(instr, values, b, num_slots)
     _check_sweep(instr, b, window, stride, cycles_per_block)
+    t, planes, p = instr.shape
+    lanes = program_lanes if program_lanes not in (None, p) else None
     if b.device.type == "cpu":
+        if lanes is not None:
+            instr, values = expand_lanes(instr, values, lanes)
         return sptrsv_blocked_plain(instr, values, b, window=window,
                                     stride=stride,
                                     cycles_per_block=cycles_per_block,
                                     num_slots=num_slots)
-    _check_cuda(instr, values, b, num_slots, cols_per_cta, cycles_per_block)
+    _check_cuda(instr, values, b, num_slots, cols_per_cta, cycles_per_block, lanes)
     if cycles_per_block % STREAM_CHUNK:
         instr, values, cycles_per_block = _pad_blocks(instr, values, cycles_per_block)
     lib = build()
-    t, planes, p = instr.shape
     x = torch.empty_like(b)
     with torch.cuda.device(b.device):
         rc = lib.sptrsv_blocked(
             instr.data_ptr(), values.data_ptr(), b.data_ptr(), x.data_ptr(),
-            t, planes, p, b.shape[1], num_slots, cols_per_cta, window, stride,
-            cycles_per_block, ring_rows(window), _stream())
+            instr.shape[0], planes, p, b.shape[1], num_slots, cols_per_cta, window,
+            stride, cycles_per_block, ring_rows(window), lanes or p, _stream())
     _raise_on(lib, rc, "sptrsv_blocked")
     sptrsv_cuda_blocked.launches += 1
+    sptrsv_cuda_blocked.compacted += lanes is not None
     return x
 
 
 sptrsv_cuda.launches = 0
 sptrsv_cuda_blocked.launches = 0
+sptrsv_cuda_blocked.compacted = 0

@@ -27,7 +27,9 @@ memory.
 Staging does what the hardware's stream memory does: values are gathered
 per instruction word so the kernels stream them positionally, NOP lanes'
 values are zeroed, and the packed words (``Program.instr``, ``[T, planes,
-P]`` int32) are padded to the cycle-block multiple.
+P]`` int32) are padded to the cycle-block multiple.  For the blocked kernel
+the stream is then lane-compacted where its busiest cycle leaves lanes
+idle (`compact_lanes`): the warp runs fewer words a thread each cycle.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.spans import span
 
 from .kernel import (
+    COMPACT_WIDTHS,
+    LANE_SHIFT,
     MAX_SMEM_BYTES,
     ring_rows,
     smem_bytes_per_column,
@@ -56,6 +60,7 @@ __all__ = [
     "plan_window",
     "resolve_placement",
     "build_solver_cols",
+    "compact_lanes",
     "instr_buffer_bytes",
     "state_bytes",
     "WindowPlan",
@@ -271,8 +276,43 @@ def _stage_instructions(prog: Program, cycles_per_block: int):
     return instr, _pad_to(values.astype(np.float32), t_pad)
 
 
+def compact_lanes(instr: np.ndarray, values: np.ndarray):
+    """``(instr, values, width)``: the staged stream lane-compacted where
+    that narrows what a warp runs, else unchanged with ``width`` = P.
+
+    A word is live when its op or its psum control is not 0; every other
+    word changes nothing.  W is the smallest of `kernel.COMPACT_WIDTHS`
+    that holds the busiest cycle's live words, and the stream is compacted
+    only when W < P: each cycle's live words, in lane order, take its first
+    slots, as two planes (the row; the upper field with the word's lane
+    from `kernel.LANE_SHIFT`), their values with them; the other slots are
+    zero words.  `kernel.expand_lanes` gives back the stream.
+    """
+    t, planes, p = instr.shape
+    if planes == 1:
+        src, upper = instr[:, 0] & ((1 << SRC_BITS) - 1), instr[:, 0] >> SRC_BITS
+    else:
+        src, upper = instr[:, 0], instr[:, 1]
+    live = (upper & 0x1F) != 0          # op or psum control
+    counts = live.sum(axis=1)
+    width = next((w for w in COMPACT_WIDTHS if w >= counts.max(initial=0)), p)
+    if width >= p:
+        return instr, values, p
+    flat = np.flatnonzero(live)         # live words, cycle by cycle in lane order
+    cyc, lane = np.divmod(flat, p)
+    pos = np.arange(flat.size) - (np.cumsum(counts) - counts)[cyc]
+    at = cyc * 2 * width + pos          # flat index of plane 0 in [T, 2, W]
+    out = np.zeros(t * 2 * width, np.int32)
+    out[at] = src.ravel()[flat]
+    out[at + width] = upper.ravel()[flat] | (lane << LANE_SHIFT)
+    vals = np.zeros(t * width, np.float32)
+    vals[cyc * width + pos] = values.ravel()[flat]
+    return out.reshape(t, 2, width), vals.reshape(t, width), width
+
+
 def _check_stream(instr: np.ndarray, n_slots: int, n_rows: int,
-                  plan: WindowPlan | None, cycles_per_block: int) -> None:
+                  plan: WindowPlan | None, cycles_per_block: int,
+                  lanes: int | None = None) -> None:
     """Check the staged words against what the kernels may touch.
 
     The kernels load the psum slot and the x row of every word, NOP and
@@ -280,10 +320,24 @@ def _check_stream(instr: np.ndarray, n_slots: int, n_rows: int,
     them unchecked (the slot as the word's bits from the slot field up), so
     a word with bits past its packed fields, a slot past the psum register
     file, a row past x, or an active word outside its block's window is
-    refused here, once per staging.
+    refused here, once per staging.  ``lanes`` marks a lane-compacted
+    stream (`compact_lanes`) over that many lanes: its words also index the
+    lanes' state by the lane they carry, so a lane past ``lanes``, or one
+    that two live words of a cycle carry (they would race on its feedback),
+    is refused too.
     """
     planes = instr.shape[1]
     upper = instr[:, 0] >> SRC_BITS if planes == 1 else instr[:, 1]
+    if lanes is not None:
+        lane = upper >> LANE_SHIFT
+        upper = upper & ((1 << LANE_SHIFT) - 1)
+        if ((lane < 0) | (lane >= lanes)).any():
+            raise ValueError(f"a compacted word carries a lane past the {lanes} lanes")
+        live = (upper & 0x1F) != 0
+        keyed = np.sort(np.where(live, lane, lanes + np.arange(instr.shape[2])), axis=1)
+        if (keyed[:, 1:] == keyed[:, :-1]).any():
+            raise ValueError("two live words of a cycle carry the same lane")
+        instr = np.stack([instr[:, 0], upper], axis=1)
     if (instr[:, 0] < 0).any() or (upper >> 13).any():
         raise ValueError("instruction words carry bits past their packed fields")
     op, src, _, slot = decode_instructions(instr, planes)
@@ -318,7 +372,10 @@ def build_solver_cols(
     resolves the memory placement, and returns a closure for the
     per-(program, knobs, device) executor cache
     (`executor.make_cuda_executor`).  The chosen regime is exposed as
-    ``closure.placement`` / ``closure.plan`` / ``closure.x_in_smem``.
+    ``closure.placement`` / ``closure.plan`` / ``closure.x_in_smem``, and
+    the slots a cycle of the staged stream as ``closure.lanes``: W where
+    the blocked kernel runs it lane-compacted (`compact_lanes`, where that
+    still fits ``smem_limit_bytes``), else P.
     """
     dev = resolve_device(device)
     if smem_limit_bytes is None:
@@ -331,7 +388,14 @@ def build_solver_cols(
     n = prog.n
     n_slots = _psum_slots(prog)
     n_rows = (n + 1) if mode == "resident" else plan.n_hbm
-    _check_stream(instr_np, n_slots, n_rows, plan, cycles_per_block)
+    p = prog.num_cus
+    lanes = None  # P, where the blocked kernel runs the stream lane-compacted
+    if mode == "blocked":
+        ci, cv, slots_w = compact_lanes(instr_np, values_np)
+        if slots_w < p and COLS_PER_CTA * smem_bytes_per_column(
+                slots_w, 2, n_slots, plan.x_words(), lanes=p) <= smem_limit_bytes:
+            instr_np, values_np, lanes = ci, cv, p
+    _check_stream(instr_np, n_slots, n_rows, plan, cycles_per_block, lanes)
     instr = torch.from_numpy(instr_np).to(dev)
     values = torch.from_numpy(values_np).to(dev)
     x_in_smem = mode == "blocked" or state_bytes(
@@ -349,12 +413,13 @@ def build_solver_cols(
                 x = sptrsv_cuda_blocked(
                     instr, values, bp, window=plan.window, stride=plan.stride,
                     cycles_per_block=cycles_per_block, num_slots=n_slots,
-                    cols_per_cta=COLS_PER_CTA)
+                    cols_per_cta=COLS_PER_CTA, program_lanes=p)
         return x[:n]
 
     solve_cols.placement = mode
     solve_cols.plan = plan
     solve_cols.x_in_smem = x_in_smem
+    solve_cols.lanes = instr.shape[2]
     solve_cols.staged = (instr, values)
     return solve_cols
 

@@ -11,7 +11,9 @@ contract a product and a sum into an FMA, so both round every operation
 alike; rtol/atol 1e-5, as tests/test_blocked.py, is the floor), at P = 8
 to 256 lanes, with 1, 2 and 4 columns per CTA and in both word planes,
 the blocked kernel on the row words its twin takes, at block lengths of 3
-to 128 cycles (the wrapper pads a block to whole 8-cycle chunks); the
+to 128 cycles (the wrapper pads a block to whole 8-cycle chunks), and on
+the band archetype's lane-compacted stream, bit for bit the stream as
+staged, one ``blocked_kernel`` launch a solve; the
 slice end to end against the serial forward substitution; the solve API's
 upper, transpose-pair, circuit and split workloads through both kernels
 (and the resident kernel with x in device memory), bit for bit against
@@ -250,6 +252,63 @@ def test_resident_kernel_on_a_stream_cut_off_mid_chunk(cuda, cut):
     t = prog.cycles - cut
     _resident_case(prog, instr[:t].contiguous(), values[:t].contiguous(), b,
                    ((True, 1), (False, 2)))
+
+
+def _blocked_kernels(run):
+    """``run()`` under the profiler: (its result, the names of the device
+    kernels it ran whose name contains ``blocked_kernel``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    cuda_dev = torch.autograd.DeviceType.CUDA
+    return out, [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda_dev and "blocked_kernel" in e.name()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 16])
+def test_compacted_blocked_launch_is_bit_identical(cuda, batch):
+    """The band archetype's stream lane-compacted from 64 lanes to 32 slots
+    (`ops.compact_lanes`): its launch bit for bit the staged stream's
+    launch through the same wrapper and the plain twin, counted once in
+    ``.compacted``; the blocked solve closure runs it, one device kernel
+    named ``blocked_kernel`` a solve, to the same bits."""
+    prog = api.compile(api.matrix("band_jagmesh"))
+    cpb = 128
+    plan = ops.plan_window(prog, cpb)
+    instr, values, b = _staged(prog, cpb, plan.n_hbm, batch, 40 + batch, cuda)
+    ci, cv, width = ops.compact_lanes(instr.cpu().numpy(), values.cpu().numpy())
+    assert (prog.num_cus, width) == (64, 32)
+    ci, cv = torch.from_numpy(ci).to(cuda), torch.from_numpy(cv).to(cuda)
+    kw = dict(window=plan.window, stride=plan.stride, cycles_per_block=cpb,
+              num_slots=_psum_slots(prog))
+    want = kernel.sptrsv_blocked_plain(instr, values, b, **kw)
+    w = kernel.sptrsv_cuda_blocked
+    before = (w.launches, w.compacted)
+    full, names = _blocked_kernels(lambda: w(instr, values, b, **kw))
+    assert (w.launches, w.compacted) == (before[0] + 1, before[1])
+    assert len(names) == 1
+    got, names = _blocked_kernels(lambda: w(ci, cv, b, program_lanes=64, **kw))
+    assert (w.launches, w.compacted) == (before[0] + 2, before[1] + 1)
+    assert len(names) == 1, names
+    torch.testing.assert_close(got, full, **EXACT)
+    torch.testing.assert_close(got, want, **EXACT)
+    _note(w, got[:prog.n], want[:prog.n])
+
+    solver = ops.build_solver_cols(prog, batch, placement="blocked", device=cuda)
+    assert solver.lanes == 32
+    x, names = _blocked_kernels(lambda: solver(b[:prog.n]))
+    assert (w.launches, w.compacted) == (before[0] + 3, before[1] + 2)
+    assert len(names) == 1, names
+    torch.testing.assert_close(x, want[:prog.n], **EXACT)
+    # a program with a full cycle stays as staged, and counts no compaction
+    full_prog = api.compile(api.matrix("ckt_add20"))
+    solver = ops.build_solver_cols(full_prog, batch, placement="blocked", device=cuda)
+    assert solver.lanes == 64
+    _once(w, lambda: solver(torch.zeros((full_prog.n, batch), device=cuda)))
+    assert w.compacted == before[1] + 2
 
 
 @pytest.mark.cuda

@@ -38,7 +38,7 @@ from repro_torch.core.csr import from_coo
 from repro_torch.core.executor import execute_numpy
 from repro_torch.core.program import decode_instructions, pack_instructions
 from repro_torch.core.schedule import compile_program
-from repro_torch.kernels.sptrsv import kernel
+from repro_torch.kernels.sptrsv import kernel, ops
 
 from test_torch_analysis import _same_diagnostics
 from test_torch_compiler import assert_same_program
@@ -105,6 +105,35 @@ def test_twins_match_pallas(mat, cfg, planes, cpb, bseed):
                                             jnp.asarray(b), interpret=True, **kw))
     got = kernel.sptrsv_blocked_plain(*_t(instr, values, b), **kw).numpy()
     np.testing.assert_allclose(got[:prog.n], want[:prog.n], **TOL)
+
+
+@_derandomized(25)
+@given(random_triangular(), accel_config(), st.sampled_from([1, 2]),
+       st.sampled_from([1, 7, 128]), st.integers(0, 1000))
+def test_compacted_stream_matches_the_blocked_twin(mat, cfg, planes, cpb, bseed):
+    """Random programs at 64 lanes, staged and lane-compacted where their
+    busiest cycle allows (`ops.compact_lanes`): the stream scatters back to
+    the staged one word for word, and the blocked wrapper's CPU path on it
+    answers bit for bit as the blocked twin on the staged stream."""
+    prog = compile_program(mat, dataclasses.replace(cfg, num_cus=64), planes=planes)
+    staged = ops._stage_instructions(prog, cpb)
+    ci, cv, width = ops.compact_lanes(*staged)
+    if width == prog.num_cus:
+        assert ci is staged[0] and cv is staged[1]
+        return
+    for got, want in zip(kernel.expand_lanes(*_t(ci, cv), 64, planes=planes), staged):
+        np.testing.assert_array_equal(got.numpy(), want)
+    sweep = row_sweep(prog, cpb)
+    if sweep is None:
+        return
+    window, stride, n_hbm = sweep
+    b = np.zeros((n_hbm, 3), np.float32)
+    b[:prog.n] = np.random.default_rng(bseed).standard_normal((prog.n, 3))
+    kw = dict(window=window, stride=stride, cycles_per_block=cpb,
+              num_slots=ops._psum_slots(prog))
+    got = kernel.sptrsv_cuda_blocked(*_t(ci, cv, b), program_lanes=64, **kw)
+    want = kernel.sptrsv_blocked_plain(*_t(*staged, b), **kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("seed,cpb", [(0, 2), (1, 7)])

@@ -133,7 +133,7 @@ def test_no_profiler_enters_no_span_and_answers_are_unchanged(
         ref = ops.sptrsv_cuda_blocked(
             instr, values, bp, window=core.plan.window,
             stride=core.plan.stride, cycles_per_block=128, num_slots=slots,
-            cols_per_cta=ops.COLS_PER_CTA)
+            cols_per_cta=ops.COLS_PER_CTA, program_lanes=prog.num_cus)
     assert torch.equal(x, ref[:prog.n, :5])
 
     svc = api.make_service({"m": mat}, placement=placement, **CPU)

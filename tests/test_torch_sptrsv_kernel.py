@@ -22,7 +22,7 @@ from repro.kernels.sptrsv import ops as ref_ops
 from repro.kernels.sptrsv.kernel import sptrsv_pallas, sptrsv_pallas_blocked
 from repro_torch.core import api
 from repro_torch.core.errors import PlacementInfeasibleError
-from repro_torch.core.program import program_from_arrays
+from repro_torch.core.program import AccelConfig, program_from_arrays
 from repro_torch.kernels.sptrsv import kernel, ops
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -377,3 +377,142 @@ def test_staging_refuses_out_of_range_words():
                             n_hbm=plan.n_hbm, num_blocks=plan.num_blocks)
     with pytest.raises(ValueError, match="outside"):
         ops._check_stream(instr, ops._psum_slots(prog), plan.n_hbm, narrow, 128)
+
+
+# ------------------------------------------------------- lane compaction
+def _compacted(name, planes=None):
+    prog = api.compile(api.matrix(name)) if planes is None else port_program(
+        ref_compile_program(generate(name), planes=planes))
+    instr, values = ops._stage_instructions(prog, 128)
+    return prog, instr, values, ops.compact_lanes(instr, values)
+
+
+@pytest.mark.parametrize("name,planes", [("band_jagmesh", 1), ("band_cz", 2), ("chem_bp", 1)])
+def test_compacted_stream_scatters_back_to_the_padded_stream(name, planes):
+    """Each compacted word, put back in the lane it carries, gives the
+    staged stream word for word, values too (the lanes left empty hold
+    the zero word, as the staged NOP lanes do)."""
+    prog, instr, values, (ci, cv, width) = _compacted(name, planes)
+    assert prog.planes == planes and width == 32 < prog.num_cus
+    assert ci.shape == (instr.shape[0], 2, 32) and cv.shape == (instr.shape[0], 32)
+    got_i, got_v = kernel.expand_lanes(*_t(ci, cv), prog.num_cus, planes=planes)
+    np.testing.assert_array_equal(got_i.numpy(), instr)
+    np.testing.assert_array_equal(got_v.numpy(), values)
+
+
+def _first_rows_free(k):
+    """``k`` rows with no off-diagonal, then a chain of 8: the compiler
+    finalizes the ``k`` in one cycle, so the busiest cycle holds ``k``
+    live words."""
+    from repro_torch.core.csr import from_coo
+
+    n = k + 8
+    rows = list(range(k, n))
+    return from_coo(n, rows, [r - 1 for r in rows], np.full(len(rows), 0.5),
+                    np.full(n, 1.5), name=f"free{k}")
+
+
+@pytest.mark.parametrize("case,width", [("band_jagmesh", 32), ("free32", 32),
+                                        ("free33", 64), ("ckt_add20", 64),
+                                        ("band_cz@16", 16)])
+def test_compaction_engages_only_below_the_program_lanes(case, width):
+    """The smallest of 32, 64, 128 slots that holds the busiest cycle,
+    taken only below P: the band archetype and a busiest cycle of exactly
+    32 live words go from 64 lanes to 32; 33 live words, a full cycle (the
+    circuit) and a program of 16 lanes stay as staged.  The blocked solve
+    closure exposes the width as ``lanes``; the resident one stays at P."""
+    name, _, cus = case.partition("@")
+    mat = _first_rows_free(int(name[4:])) if name.startswith("free") else api.matrix(name)
+    prog = api.compile(mat, AccelConfig(num_cus=int(cus)) if cus else None)
+    instr, values = ops._stage_instructions(prog, 128)
+    got = ops.compact_lanes(instr, values)
+    assert got[2] == width
+    if width == prog.num_cus:
+        assert got[0] is instr and got[1] is values
+    assert ops.plan_window(prog, 128).feasible
+    core = ops.build_solver_cols(prog, 2, placement="blocked", device="cpu")
+    assert core.lanes == width == core.staged[0].shape[2]
+    resident = ops.build_solver_cols(prog, 2, placement="resident", device="cpu")
+    assert resident.lanes == prog.num_cus
+
+
+def test_staging_refuses_compacted_lanes_the_kernel_would_index_unchecked():
+    """A compacted stream passes `_check_stream` with its lanes; a lane at
+    or past P, or one that two live words of a cycle carry, is refused."""
+    prog, instr, _, (ci, _, _) = _compacted("band_jagmesh")
+    plan = ops.plan_window(prog, 128)
+    slots = ops._psum_slots(prog)
+    ops._check_stream(ci, slots, plan.n_hbm, plan, 128, lanes=64)
+    live = np.argwhere((ci[:, 1] & 0x1F) != 0)
+    t, s = live[0]
+    past = ci.copy()
+    past[t, 1, s] = (past[t, 1, s] & 0x1FFF) | (64 << kernel.LANE_SHIFT)
+    with pytest.raises(ValueError, match="lane past"):
+        ops._check_stream(past, slots, plan.n_hbm, plan, 128, lanes=64)
+    negative = ci.copy()
+    negative[t, 1, s] |= np.int32(-2 ** 31)
+    with pytest.raises(ValueError, match="lane past"):
+        ops._check_stream(negative, slots, plan.n_hbm, plan, 128, lanes=64)
+    t2 = next(c for c in range(ci.shape[0]) if ((ci[c, 1] & 0x1F) != 0).sum() >= 2)
+    twice = ci.copy()
+    s0, s1 = np.nonzero((ci[t2, 1] & 0x1F) != 0)[0][:2]
+    twice[t2, 1, s1] = (twice[t2, 1, s1] & 0x1FFF) | (twice[t2, 1, s0] & ~0x1FFF)
+    with pytest.raises(ValueError, match="same lane"):
+        ops._check_stream(twice, slots, plan.n_hbm, plan, 128, lanes=64)
+    # the slot and window checks still see the upper field under the lane
+    slot = ci.copy()
+    slot[t, 1, s] = (slot[t, 1, s] & ~(0xFF << 5)) | (slots << 5)
+    with pytest.raises(ValueError, match="psum slot"):
+        ops._check_stream(slot, slots, plan.n_hbm, plan, 128, lanes=64)
+    narrow = ops.WindowPlan(True, stride=plan.stride, window=16,
+                            n_hbm=plan.n_hbm, num_blocks=plan.num_blocks)
+    with pytest.raises(ValueError, match="outside"):
+        ops._check_stream(ci, slots, plan.n_hbm, narrow, 128, lanes=64)
+
+
+@pytest.mark.parametrize("k,cpb", [(32, 2), (31, 3), ("band_jagmesh", 128)])
+def test_compacted_cpu_path_equals_the_blocked_twin(k, cpb):
+    """The wrapper on CPU tensors, given a compacted stream and the
+    program's lanes, answers bit for bit as `sptrsv_blocked_plain` on the
+    staged stream, a busiest cycle of exactly 32 live words included; it
+    counts no launch."""
+    from torch_strategies import row_sweep
+
+    prog = api.compile(api.matrix(k) if isinstance(k, str) else _first_rows_free(k))
+    window, stride, n_hbm = row_sweep(prog, cpb)
+    instr, values = ops._stage_instructions(prog, cpb)
+    ci, cv, width = ops.compact_lanes(instr, values)
+    assert width == 32
+    b = np.zeros((n_hbm, 3), np.float32)
+    b[:prog.n] = np.random.default_rng(cpb).standard_normal((prog.n, 3))
+    kw = dict(window=window, stride=stride, cycles_per_block=cpb,
+              num_slots=ops._psum_slots(prog))
+    before = (kernel.sptrsv_cuda_blocked.launches, kernel.sptrsv_cuda_blocked.compacted)
+    got = kernel.sptrsv_cuda_blocked(*_t(ci, cv, b), program_lanes=prog.num_cus, **kw)
+    want = kernel.sptrsv_blocked_plain(*_t(instr, values, b), **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (kernel.sptrsv_cuda_blocked.launches,
+            kernel.sptrsv_cuda_blocked.compacted) == before
+
+
+# slots, planes, num_slots, cols_per_cta, program lanes -> refused?
+@pytest.mark.parametrize("args,refused", [
+    ((32, 2, 12, 1, 64), None),
+    ((64, 2, 12, 4, 128), None),
+    ((128, 2, 12, 2, 256), None),
+    ((32, 1, 12, 1, 64), "compacted"),     # one plane: no room for the lane
+    ((48, 2, 12, 1, 64), "compacted"),     # not a whole warp row of slots
+    ((64, 2, 12, 1, 64), "compacted"),     # no narrower than the program
+    ((32, 2, 12, 1, 257), "compacted"),
+    ((32, 2, 256, 4, 256), "shared memory"),  # 4 x (a 256 KB psum file)
+])
+def test_check_kernel_limits_of_a_compacted_stream(args, refused):
+    p, planes, slots, cols, lanes = args
+    if refused is None:
+        kernel.check_kernel_limits(p, planes, slots, cols, 128, lanes=lanes)
+    else:
+        with pytest.raises(ValueError, match=refused):
+            kernel.check_kernel_limits(p, planes, slots, cols, 128, lanes=lanes)
+    # psum file [slots][lanes], fb [lanes], a zero word (16-byte padded), ring
+    assert kernel.smem_bytes_per_column(32, 2, 12, 100, lanes=64) == \
+        4 * (((12 * 64 + 64 + 1 + 3) // 4) * 4 + 40 * 3 * 32 + 100)
