@@ -27,12 +27,14 @@ def _split(mat):
     return rowptr, mat.colidx[off], mat.values[off], mat.values[last]
 
 
-# each configuration's archetype as the port registers it
-ARCHETYPE = {"band_jagmesh64k": "band_jagmesh", "ckt_add20_32k": "ckt_add20"}
-SCALED = {"band_jagmesh64k": {"n"}, "ckt_add20_32k": {"n", "hubs"}}
+# every configuration file that records the port's registered archetype
+# it was scaled from
+ARCHETYPES = sorted(
+    p.stem for p in (harness.HERE / "configs").glob("*.json")
+    if "archetype" in json.loads(p.read_text())["generator"])
 
 
-@pytest.mark.parametrize("name", sorted(ARCHETYPE))
+@pytest.mark.parametrize("name", ARCHETYPES)
 def test_pattern_is_the_port_generators(name):
     cfg = _config(name)
     n, rows, cols = matrices.pattern(cfg)
@@ -45,15 +47,16 @@ def test_pattern_is_the_port_generators(name):
     np.testing.assert_array_equal(cols, port_cols)
 
 
-@pytest.mark.parametrize("name", sorted(ARCHETYPE))
+@pytest.mark.parametrize("name", ARCHETYPES)
 def test_only_the_scale_departs_from_the_archetype(name):
     """The configuration's ``archetype`` is the port's registered matrix
     (the same pattern from its arguments), and the configuration keeps its
     shape (band width and fill; degree and hub share), changing only keys
     of scale, each listed in ``reduced``."""
     cfg = _config(name)
+    assert cfg["name"] == name
     gen, arch = cfg["generator"], cfg["generator"]["archetype"]
-    assert arch["name"] == ARCHETYPE[name]
+    assert arch["name"] in cfg["source"]
     rows, cols = matrices.GENERATORS[gen["kind"]](**arch["args"])
     n = arch["args"]["n"]
     rowptr, _, _ = matrices.to_csr(n, np.asarray(rows), np.asarray(cols),
@@ -62,16 +65,16 @@ def test_only_the_scale_departs_from_the_archetype(name):
     np.testing.assert_array_equal(rowptr, port_rowptr)
     np.testing.assert_array_equal(cols, port_cols)
     changed = {k for k, v in gen["args"].items() if arch["args"][k] != v}
-    assert changed == SCALED[name] == set(cfg["reduced"])
+    assert changed == set(cfg["reduced"])
     spec = {c["name"]: c for c in harness.load_spec()["configs"]}
-    assert set(spec[name]["reduced"]) == SCALED[name]
+    assert set(spec[name]["reduced"]) == set(cfg["reduced"])
     if "hubs" in changed:
         share = arch["args"]["hubs"] / arch["args"]["n"]
         assert gen["args"]["hubs"] == round(share * gen["args"]["n"])
 
 
 def test_builder_hands_the_port_the_benchmarks_arrays():
-    cfg = json.loads((harness.HERE / "tests" / "data" / "band_tiny.json")
+    cfg = json.loads((harness.HERE / "tests" / "data" / "band_jagmesh64k.json")
                      .read_text())
     sys_ = tri_csr.build(cfg, 2**31 + 5)
     rowptr, cols, vals, diag = _split(sys_.mat)

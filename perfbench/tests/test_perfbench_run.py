@@ -14,18 +14,21 @@ import pytest
 import torch
 
 from perfbench import harness, reference
-from perfbench.tests.helpers import cpu_spec, run_cpu
+from perfbench.tests.helpers import cells, cpu_spec, run_cpu
 from repro_torch.core import api
 from repro_torch.core.serve import SolveService
 from repro_torch.kernels.sptrsv import ops
 
 ROOT = harness.ROOT
-SOLVE1 = ["band64k.solve1"]
-SERVE = ["ckt32k.serve"]
+# every cell of BENCHMARK.json; the loop-specific faults go to the cells
+# whose traffic that loop runs
+CELLS = cells()
+SOLVE1 = cells("solve1")
+SERVE = cells("serve")
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
-@pytest.mark.parametrize("cell", SOLVE1 + SERVE)
+@pytest.mark.parametrize("cell", CELLS)
 def test_result_line_untraced(cell):
     r = run_cpu(cell)
     assert list(r) == KEYS + ["checks"]
@@ -40,7 +43,7 @@ def test_result_line_untraced(cell):
     json.dumps(r, allow_nan=False)
 
 
-@pytest.mark.parametrize("cell", ["band64k.solve1", "ckt32k.serve"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_result_line_traced(cell):
     r = run_cpu(cell, trace=True)
     assert list(r) == KEYS + ["breakdown", "checks"]
@@ -62,7 +65,7 @@ def _break_kernels(monkeypatch, fn):
         monkeypatch.setattr(ops, name, lambda *a, _o=orig, **k: fn(a[2], _o(*a, **k)))
 
 
-@pytest.mark.parametrize("cell", SOLVE1 + SERVE)
+@pytest.mark.parametrize("cell", CELLS)
 def test_state_unchanged_is_not_correct(cell, monkeypatch):
     _break_kernels(monkeypatch, lambda b, x: b.clone())
     r = run_cpu(cell)
@@ -70,7 +73,7 @@ def test_state_unchanged_is_not_correct(cell, monkeypatch):
     assert r["checks"]["max_rel_err"]["value"] > r["checks"]["max_rel_err"]["limit"]
 
 
-@pytest.mark.parametrize("cell", SOLVE1 + SERVE)
+@pytest.mark.parametrize("cell", CELLS)
 def test_an_altered_answer_is_not_correct(cell, monkeypatch):
     def alter(b, x):
         x = x.clone()
@@ -134,7 +137,7 @@ def test_half_of_a_flush_left_out_is_not_correct(cell, monkeypatch):
     assert r["correct"] is False
 
 
-@pytest.mark.parametrize("cell", SOLVE1 + SERVE)
+@pytest.mark.parametrize("cell", CELLS)
 def test_bfloat16_control_in_the_programs_place_is_not_correct(cell, monkeypatch):
     spec = cpu_spec()
     parts = harness.resolve(spec, cell)
@@ -160,8 +163,8 @@ opened = []
 sys.addaudithook(lambda ev, args: opened.append(str(args[0]))
                  if ev == "open" and isinstance(args[0], str) else None)
 from perfbench import harness
-from perfbench.tests.helpers import run_cpu
-for cell in ("band64k.solve1", "ckt32k.serve"):
+from perfbench.tests.helpers import cells, run_cpu
+for cell in cells():
     for trace in (False, True):
         run_cpu(cell, trace=trace, seconds=0.2)
 print(json.dumps({"forbidden": harness.forbidden_modules(),

@@ -13,7 +13,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from perfbench import devtrace, harness
-from perfbench.tests.helpers import run_cpu
+from perfbench.tests.helpers import cells, run_cpu
 from repro_torch import spans
 from repro_torch.core import api, matrices
 from repro_torch.kernels import common
@@ -87,7 +87,7 @@ def test_kernel_build_s_reads_the_build_counter(monkeypatch, secs, want):
     assert reader("kernel_build_s")({}) == want
 
 
-@pytest.mark.parametrize("cell", ["band64k.solve1", "ckt32k.serve"])
+@pytest.mark.parametrize("cell", cells())
 @pytest.mark.parametrize("secs", [{}, {"sptrsv": 0.0}])
 def test_traced_line_reports_kernel_build_s_where_a_library_loaded(
         monkeypatch, cell, secs):
