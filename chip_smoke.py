@@ -748,8 +748,11 @@ def solve_api_phase(wrappers):
     assert (solver.placement, solver.x_in_smem) == ("resident", False), solver.placement
     umat = np.random.default_rng(SEED).standard_normal((n, B)).astype(np.float32)
     path = f"circuit n={n}"
+    x_in_device = wrappers["sptrsv_cuda"].x_in_device
     x, launches = _drive(wrappers, path, lambda: cw.solve(umat, **cuda))
     assert x.shape == (n, B) and np.isfinite(x).all(), path
+    # every resident launch of the step kept x in device memory
+    assert wrappers["sptrsv_cuda"].x_in_device - x_in_device == launches["sptrsv_cuda"], path
     # the circuit as the lower-triangular system its program solves:
     # 1 / scale on the diagonal, the negated weights below it
     rowptr = circ.ptr + np.arange(n + 1)

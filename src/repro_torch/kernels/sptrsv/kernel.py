@@ -28,7 +28,8 @@ so kernel and twin round identically.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its kernel
-launches in ``<wrapper>.launches`` (and `sptrsv_cuda_blocked` those of a
+launches in ``<wrapper>.launches`` (`sptrsv_cuda` those with x in device
+memory in ``.x_in_device``, and `sptrsv_cuda_blocked` those of a
 compacted stream in ``.compacted``).  The CUDA library is built on first use
 (`build`, through `common.build_library`) with ``nvcc`` into ``build/`` at
 the repository root and loaded with ctypes.
@@ -393,7 +394,8 @@ def sptrsv_cuda(instr, values, b, *, num_slots: int, x_in_smem: bool = True,
     One warp per column, ``cols_per_cta`` columns per CTA.  ``x_in_smem``
     keeps each column's x in shared memory (the caller checks that
     ``n + 1`` rows per column fit beside the psum file and stream ring, see
-    `ops.state_bytes`); otherwise x stays in device memory.  Every word
+    `ops.state_bytes`); otherwise x stays in device memory, and the launch
+    is counted in ``.x_in_device`` too.  Every word
     must name a row of ``b`` and one of ``num_slots`` psum slots, NOP words
     included (the kernel loads both for every lane), as `sptrsv_plain`
     also requires, and carry no bit past its packed fields
@@ -414,6 +416,7 @@ def sptrsv_cuda(instr, values, b, *, num_slots: int, x_in_smem: bool = True,
             int(bool(x_in_smem)), _stream())
     _raise_on(lib, rc, "sptrsv_resident")
     sptrsv_cuda.launches += 1
+    sptrsv_cuda.x_in_device += not x_in_smem
     return x
 
 
@@ -465,5 +468,6 @@ def sptrsv_cuda_blocked(instr, values, b, *, window: int, stride: int,
 
 
 sptrsv_cuda.launches = 0
+sptrsv_cuda.x_in_device = 0
 sptrsv_cuda_blocked.launches = 0
 sptrsv_cuda_blocked.compacted = 0

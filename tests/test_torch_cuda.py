@@ -342,6 +342,27 @@ def test_refused_launch_raises(cuda):
 
 
 @pytest.mark.cuda
+def test_launch_with_x_in_device_memory_is_counted(cuda):
+    """A resident solve whose x does not fit the shared-memory limit keeps x
+    in device memory and counts its launch in ``.x_in_device``; at the
+    default limit the same program's x fits and adds nothing there."""
+    prog = api.compile(api.matrix("ckt_rajat04"))
+    x_bytes = ops.state_bytes(prog, placement="resident")["x"]
+    b = np.random.default_rng(24).standard_normal(prog.n).astype(np.float32)
+    w = kernel.sptrsv_cuda
+    answers = []
+    for limit, x_in_smem in ((x_bytes - 1, False), (None, True)):
+        solver = api.make_solver(prog, backend="cuda", placement="resident",
+                                 smem_limit_bytes=limit)
+        assert solver.x_in_smem is x_in_smem
+        before = (w.launches, w.x_in_device)
+        answers.append(solver(b).cpu())
+        torch.cuda.synchronize()
+        assert (w.launches, w.x_in_device) == (before[0] + 1, before[1] + (not x_in_smem))
+    torch.testing.assert_close(answers[0], answers[1], **EXACT)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("placement", ["resident", "blocked"])
 def test_slice_on_card(cuda, placement):
     mat = api.matrix("band_dw2048")
