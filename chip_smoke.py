@@ -27,7 +27,7 @@ largest matrices with 16 right-hand sides:
      the kernel (solve_ms - ms);
   6. ptxas: registers, spills and static shared memory of every SpTRSV
      kernel instance, from the build's log (kept beside a reused library;
-     a spill, or a log without the 16 resident and 8 blocked instances,
+     a spill, or a log without the 16 resident, 8 slotted and 11 blocked instances,
      fails the smoke), and the dynamic shared memory the two main-path
      launches ask for.
 
@@ -38,14 +38,15 @@ and its launch counts asserted:
 
   7. an incomplete-Cholesky preconditioner application on band_huge64k,
      api.compile_pair then pair.solve: the forward sweep Ly=b row-blocked,
-     the backward sweep L^T x=y resident with x in device memory (the
+     the backward sweep L^T x=y resident with x in a slot file (the
      reversed schedule leaves no window that fits), one launch of each
      kernel; oracle serial_solve then serial_solve_upper;
   8. the same on ckt_huge32k: both sweeps resident, x in shared memory;
   9. a DPU-v2-style circuit at the paper's largest node count, 85,392
      (random_circuit as benchmarks/dag_workloads.py builds it),
      api.compile_circuit then solve, against circ.eval: one resident
-     launch with x in device memory;
+     launch with x in a slot file (x outgrows shared memory, its live rows
+     do not), timed at B = 16 and B = 1 beside cuSPARSE;
  10. node splitting on hub_wall_big, api.compile_split(max_indegree=64)
      then api.solve_split, against serial_solve of the unsplit matrix;
  11. compile once, load, serve: the band backward program saved, loaded
@@ -57,8 +58,10 @@ For every sweep of steps 7-10 it prints the kernel's time (CUDA events),
 its microseconds and SM clocks per emitted cycle, the time the entry point
 adds (solve_ms - ms), the bound, cuSPARSE's triangular solve on the same
 triangle (upper=True for the backward sweep) and where x sat; they go to
-the "paths" list of the kernels line.  The plain versions are not run
-again on these paths: step 4 holds each SpTRSV kernel against its own.
+the "paths" list of the kernels line.  Each sweep's launch is first held
+bit for bit against its plain version on the same staged inputs, and a
+launch with x in a slot file (the band's backward sweep, the circuit) also
+against the same kernel with x in device memory.
 
 Then Zamba2-2.7B serving at full width (54 Mamba2 layers, d_model 2560,
 vocab 32,000, bf16, seeded random weights), through launch/serve.py:
@@ -275,6 +278,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 16
@@ -340,7 +344,8 @@ def _ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            name = re.search(r"(resident_kernel|blocked_kernel)", mangled)
+            name = re.search(r"(resident_kernel_slotted|resident_kernel|blocked_kernel)",
+                             mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             cur = [f"{name.group(1) if name else mangled}<{','.join(args)}>", 0, 0, 0, 0]
             rows.append(cur)
@@ -395,9 +400,12 @@ def _staged_launch(prog, core, bmat):
             if core.lanes < prog.num_cus else (instr, values)
         return (name, lambda: wrapper(instr, values, bp, **kernel_kw),
                 lambda: kernel.sptrsv_blocked_plain(*full, bp, **kw), bp, kw)
-    kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA, x_in_smem=core.x_in_smem)
+    kernel_kw = dict(kw, cols_per_cta=ops.COLS_PER_CTA, x_in_smem=core.x_in_smem,
+                     slot_file=core.slot_file)
+    plain = (partial(kernel.sptrsv_slotted_plain, slot_file=core.slot_file)
+             if core.slot_file is not None else kernel.sptrsv_plain)
     return ("sptrsv_cuda", lambda: kernel.sptrsv_cuda(instr, values, bp, **kernel_kw),
-            lambda: kernel.sptrsv_plain(instr, values, bp, **kw), bp, kw)
+            lambda: plain(instr, values, bp, **kw), bp, kw)
 
 
 def _sptrsv_bound_ms(prog, nb):
@@ -459,11 +467,13 @@ def main() -> int:
     for kname_, regs, st, ld, sm in ptxas:
         print(f"[sptrsv ptxas] {kname_}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B, static smem {sm} B")
-    # 2 planes x 4 lane widths x (x in shared or device memory); blocked 2 x 4,
-    # and 3 widths (32, 64, 128 slots) of a lane-compacted stream
+    # 2 planes x 4 lane widths x (x in shared or device memory), and 2 x 4 with
+    # a slot file; blocked 2 x 4, and 3 widths (32, 64, 128 slots) of a
+    # lane-compacted stream
     families = [k.split("<")[0] for k, *_ in ptxas]
-    assert (families.count("resident_kernel"), families.count("blocked_kernel")) == (16, 11), \
-        f"ptxas reported {len(ptxas)} SpTRSV kernels, not the 16 resident and 11 blocked"
+    assert [families.count(f) for f in (
+        "resident_kernel", "resident_kernel_slotted", "blocked_kernel")] == [16, 8, 11], \
+        f"ptxas reported {len(ptxas)} SpTRSV kernels, not 16 resident, 8 slotted and 11 blocked"
     assert all(st == 0 and ld == 0 for _, _, st, ld, _ in ptxas), "ptxas spilled"
 
     wrappers = {"sptrsv_cuda": kernel.sptrsv_cuda,
@@ -620,18 +630,49 @@ def _drive(wrappers, what, fn):
 
 
 def _sweep_entry(path, prog, solver, sweep_input, library, library_ref, rows=slice(None)):
-    """Times of one sweep's kernel on its staged inputs, as the path's
-    solver launches it: CUDA events over 10 launches after a warm-up, the
-    SM clock under load, the bound, and cuSPARSE on the same triangle
-    (``library`` = rowptr, colidx, values, b on the card, upper), whose x
-    (rows ``rows``) is held against ``library_ref``, the path's x."""
+    """One sweep's kernel on its staged inputs, as the path's solver
+    launches it: held bit for bit against its plain version on the same
+    inputs (and, with x in a slot file, against the same kernel with x in
+    device memory on the unslotted stream); timed with CUDA events over 10
+    launches after a warm-up, the SM clock under load, the bound, and
+    cuSPARSE on the same triangle (``library`` = rowptr, colidx, values, b
+    on the card, upper), whose x (rows ``rows``) is held against
+    ``library_ref``, the path's x."""
     import numpy as np
+    import torch
 
-    from repro_torch.kernels.sptrsv import ops
+    from repro_torch.core.executor import _psum_slots
+    from repro_torch.kernels.sptrsv import kernel, ops
 
     core = ops.build_solver_cols(prog, B, device="cuda")
     assert (core.placement, core.x_in_smem) == (solver.placement, solver.x_in_smem)
-    kname, launch, _, _, _ = _staged_launch(prog, core, sweep_input)
+    kname, launch, plain, bp, _ = _staged_launch(prog, core, sweep_input)
+    xk = launch()
+    t0 = time.perf_counter()
+    xp = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _close(xk[:prog.n].cpu().numpy(), xp[:prog.n].cpu().numpy(),
+                 f"{kname} on {path} vs its plain version")
+    assert torch.equal(xk[:prog.n], xp[:prog.n]), \
+        f"{kname} on {path}: not bit-identical to its plain version"
+    device_ms = None
+    if core.slot_file is not None:
+        # the same solve with x in device memory, on the stream that names rows
+        instr, values = (torch.from_numpy(a).cuda()
+                         for a in ops._stage_instructions(prog, 128))
+
+        def device_launch():
+            return kernel.sptrsv_cuda(instr, values, bp, num_slots=_psum_slots(prog),
+                                      x_in_smem=False, cols_per_cta=ops.COLS_PER_CTA)
+
+        assert torch.equal(xk[:prog.n], device_launch()[:prog.n]), \
+            f"{kname} on {path}: slot file and device memory differ"
+        device_launch()
+        device_ms = _event_ms(device_launch, 10)
+    print(f"{kname} on {path}: bit-identical to its plain version ({plain_ms:.1f} ms)"
+          + ("" if device_ms is None else
+             f" and to x in device memory ({device_ms:.4f} ms a launch)"), flush=True)
     for _ in range(2):
         launch()
     ms = _event_ms(launch, 10)
@@ -639,7 +680,8 @@ def _sweep_entry(path, prog, solver, sweep_input, library, library_ref, rows=sli
     *csr, bdev, upper = library
     xl, library_ms = _library_solve(*csr, bdev, upper)
     bound_ms, bound_by = _sptrsv_bound_ms(prog, B)
-    where = "shared" if core.x_in_smem else "device"
+    where = ("shared" if core.x_in_smem else
+             f"a slot file of {core.x_slots} slots of shared" if core.x_slots else "device")
     print(f"{kname} on {path}: {ms:.4f} ms ({ms * 1e3 / prog.cycles:.4f} us, "
           f"{ms * 1e3 / prog.cycles * sm_mhz:.1f} SM clocks per emitted cycle at "
           f"clocks.sm {sm_mhz:.0f} MHz under load, power.limit {power_limit:.0f} W), "
@@ -649,10 +691,11 @@ def _sweep_entry(path, prog, solver, sweep_input, library, library_ref, rows=sli
     return {
         "path": path, "name": kname, "route": "cuda", "source": SOURCE,
         "replaces": REPLACES[kname], "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "library_upper": upper,
+        "max_abs_err": err, "plain_ms": plain_ms, "bit_identical": True,
+        "x_in_device_ms": device_ms, "library_ms": library_ms, "library_upper": upper,
         "library_max_abs_err": float(np.abs(xl.cpu().numpy()[rows] - library_ref).max()),
         "n": prog.n, "nnz": prog.stats.nnz, "B": B, "emitted_cycles": prog.cycles,
-        "placement": core.placement, "x_in_smem": core.x_in_smem,
+        "placement": core.placement, "x_in_smem": core.x_in_smem, "x_slots": core.x_slots,
         "smem_bytes_per_cta": ops.state_bytes(prog, placement=core.placement,
                                               plan=core.plan),
         "us_per_cycle": ms * 1e3 / prog.cycles,
@@ -684,6 +727,7 @@ def solve_api_phase(wrappers):
     from repro_torch.core import api
     from repro_torch.core.csr import serial_solve, serial_solve_upper, transpose_upper
     from repro_torch.core.frontends import random_circuit
+    from repro_torch.kernels.sptrsv import ops
 
     paths, launches_by_path = [], {}
     cuda = dict(backend="cuda", placement="auto")
@@ -746,13 +790,16 @@ def solve_api_phase(wrappers):
     t_compile = time.perf_counter() - t0
     solver = api.make_solver(cw.program, batch=B, **cuda)
     assert (solver.placement, solver.x_in_smem) == ("resident", False), solver.placement
+    assert solver.x_slots > 0, "the circuit's live rows should fit a slot file"
     umat = np.random.default_rng(SEED).standard_normal((n, B)).astype(np.float32)
     path = f"circuit n={n}"
-    x_in_device = wrappers["sptrsv_cuda"].x_in_device
+    w = wrappers["sptrsv_cuda"]
+    counts = (w.x_slotted, w.x_in_device)
     x, launches = _drive(wrappers, path, lambda: cw.solve(umat, **cuda))
     assert x.shape == (n, B) and np.isfinite(x).all(), path
-    # every resident launch of the step kept x in device memory
-    assert wrappers["sptrsv_cuda"].x_in_device - x_in_device == launches["sptrsv_cuda"], path
+    # every resident launch of the step kept x in the slot file
+    assert (w.x_slotted - counts[0], w.x_in_device - counts[1]) == (
+        launches["sptrsv_cuda"], 0), path
     # the circuit as the lower-triangular system its program solves:
     # 1 / scale on the diagonal, the negated weights below it
     rowptr = circ.ptr + np.arange(n + 1)
@@ -764,6 +811,16 @@ def solve_api_phase(wrappers):
     colidx[diag], values[diag] = np.arange(n), 1.0 / circ.scale
     entry = _sweep_entry(path, cw.program, solver, umat,
                          (rowptr, colidx, values, torch.from_numpy(umat).cuda(), False), x)
+    # one column, as a caller evaluating the circuit on one input does
+    one = ops.build_solver_cols(cw.program, 1, device="cuda")
+    assert one.x_slots == solver.x_slots
+    _, launch1, _, _, _ = _staged_launch(cw.program, one, umat[:, :1])
+    ms1 = _event_ms(launch1, 10)
+    _, lib1 = _library_solve(rowptr, colidx, values, torch.from_numpy(umat[:, :1]).cuda(), False)
+    entry.update(x_slots=solver.x_slots, ms_b1=ms1, library_ms_b1=lib1)
+    print(f"{path}: slot file of {solver.x_slots} slots; a launch at B = {B} "
+          f"{entry['ms']:.4f} ms (cuSPARSE {entry['library_ms']:.4f}), at B = 1 "
+          f"{ms1:.4f} ms (cuSPARSE {lib1:.4f})", flush=True)
     finish(path, lambda: cw.solve(umat, **cuda), launches,
            {"sptrsv_cuda": 1, "sptrsv_cuda_blocked": 0}, [entry], x, circ.eval(umat),
            f"{path} vs circ.eval", t_compile)

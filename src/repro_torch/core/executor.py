@@ -378,6 +378,7 @@ def make_cuda_executor(
     entry.placement = core.placement
     entry.plan = core.plan
     entry.x_in_smem = core.x_in_smem
+    entry.x_slots = core.x_slots
     return entry
 
 

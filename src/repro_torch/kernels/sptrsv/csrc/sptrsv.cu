@@ -49,8 +49,10 @@
 //   * The psum register file lives in shared memory, private to its lane,
 //     laid out [slot][k][thread] so a warp's accesses never share a bank.
 //   * x lives in shared memory: the whole padded vector in the resident
-//     kernel where it fits (else in device memory, where it stays in L2),
-//     a ring of rows in the blocked kernel.
+//     kernel where it fits, else a slot file (below), else device memory
+//     (where it stays in L2, and each cycle's x loads wait on an L2 round
+//     trip: ~417 SM clocks a cycle on a DAG of 85,392 rows, 3.5x the
+//     shared-memory cycle); a ring of rows in the blocked kernel.
 //
 // Row-blocked sweep (sptrsv_blocked).  Cycle block g touches only rows
 // [g*stride, g*stride + window) (checked on the host from the program's row
@@ -70,6 +72,36 @@
 // beyond every earlier window, which no FINAL can have written yet, so
 // what it brings in is never read.  After the last block the whole window
 // is flushed.
+//
+// Slot file (resident_kernel_slotted).  A DAG too large for shared memory,
+// whose hubs leave no row window, still has few rows live at once: on the
+// 85,392-row circuit at most ~3,200 of them are between their FINAL and
+// their last read.  The host (kernels/sptrsv/ops.py plan_slots) gives each
+// row a slot for the chunks from the copy of its b to its last read, and
+// rewrites the words to name slots; a slot goes to a new row only in a
+// chunk after its last occupant's last read.  So run_stream runs as with x
+// in shared memory, over SmemRows of the slots, and a hook at each chunk's
+// top moves rows in and out:
+//   * its flush list reads x of rows final in earlier chunks from their
+//     slots and writes it to device memory (stores that no cycle waits on);
+//   * a __syncwarp, so those reads come before any refill's write and the
+//     refills issued LEAD chunks before have landed for every thread;
+//   * its refill list starts the cp.async of b of rows whose FINAL lies
+//     LEAD chunks or more ahead, into their slots.
+// The lists ((slot, row) pairs, SLOT_LIST a thread and list a chunk, row -1
+// unused) reach a per-warp list ring by cp.async LEAD chunks ahead, each
+// thread its own entries, as the stream does, so the chunk top waits on no
+// device-memory load.  Rows whose FINAL comes before chunk LEAD are copied
+// before the loop, and rows final in the last chunk are written after it.
+// On the 85,392-row circuit a cycle takes ~76 ns, against ~58 ns for the
+// same words over x already in shared memory and ~209 ns with x in device
+// memory; the ~18 ns are the chunk top's shared loads and copies, which the
+// next cycle's x loads queue behind or wait on.  Neither the flush's global
+// stores nor the hook's __syncwarp cost a measurable time; holding the
+// entries and the flushed x in registers a chunk top ahead cost more
+// (~82-84 ns a cycle) than it saved.
+// Words, lane order and rounding are those of the other resident kernels,
+// so x is bit for bit theirs.
 //
 // Lane-compacted stream (blocked kernel only).  A program's cycles may hold
 // few live words (op or psum control not 0): on the FEM band at P = 64 no
@@ -123,6 +155,7 @@ constexpr unsigned SRC_MASK = (1u << SRC_BITS) - 1;
 constexpr int LANE_SHIFT = 13;
 
 constexpr int CHUNK = 8;  // cycles per cp.async group and unrolled loop body
+constexpr int SLOT_LIST = 4;  // a thread's (slot, row) entries of a chunk's list (kernel.py)
 
 // Everything that depends on the lanes per thread; kernel.py mirrors it.
 template <int LPT>
@@ -187,6 +220,15 @@ __device__ __forceinline__ void cp_async(unsigned dst, const uint32_t* src, bool
                  "n"(BYTES), "r"(valid ? BYTES : 0)
                  : "memory");
   }
+}
+
+// a 4-byte cp.async when `on` is not 0 (predicated: no write otherwise)
+__device__ __forceinline__ void cp_async4_if(unsigned on, unsigned dst, const float* src) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %0, 0;\n\t@q cp.async.ca.shared.global [%1], [%2], "
+      "4;\n\t}" ::"r"(on),
+      "r"(dst), "l"(src)
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -613,6 +655,101 @@ resident_kernel(const uint32_t* __restrict__ instr, const uint32_t* __restrict__
   }
 }
 
+// ------------------------------------------------------------ the slot file
+// The hook of resident_kernel_slotted (the head note): the per-warp list
+// ring of LEAD + 1 chunk slots, each [refill, flush][32 threads][SLOT_LIST]
+// (slot, row) pairs as they lie in device memory, and the chunk tops.
+template <int LPT>
+struct SlotFile {
+  static constexpr int LEAD = Lanes<LPT>::LEAD;
+  static constexpr int MINE = SLOT_LIST * 8;  // bytes of a thread's entries of one list
+  static constexpr int LIST = 32 * MINE;      // bytes of one list
+  static constexpr int SLOT = 2 * LIST;       // bytes of a chunk's two lists
+  static constexpr int RING_WORDS = (LEAD + 1) * SLOT / 4;
+  // shared words of one warp: the list ring, then the slots padded to 16 bytes
+  static __host__ __device__ int words(int x_slots) { return RING_WORDS + ((x_slots + 3) & ~3); }
+
+  const int* lists;  // [nch][2][32][SLOT_LIST][2], pre-offset to this thread's entries
+  const float* b;    // pre-offset to the column, row stride B
+  float* x;
+  unsigned ring;  // shared address of this thread's entries in list-ring slot 0
+  unsigned xs;    // shared address of slot 0
+  int B, nch;
+  int slot = 0;  // list-ring slot of chunk cc
+
+  // this thread's entries of chunk `chunk`'s lists into list-ring slot `rs`
+  __device__ __forceinline__ void copy(int chunk, int rs) const {
+    if (chunk >= nch) return;
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(lists) + (size_t)chunk * (SLOT / 4);
+    cp_async<MINE>(ring + rs * SLOT, src, true);
+    cp_async<MINE>(ring + rs * SLOT + LIST, src + LIST / 4, true);
+  }
+
+  __device__ __forceinline__ void at_chunk(int cc) {
+    copy(cc + LEAD, slot == 0 ? LEAD : slot - 1);
+    const unsigned here = ring + slot * SLOT;
+    uint32_t re[2 * SLOT_LIST], fl[2 * SLOT_LIST];
+    lds_words<2 * SLOT_LIST>(here, re);
+    lds_words<2 * SLOT_LIST>(here + LIST, fl);
+    float v[SLOT_LIST];
+#pragma unroll
+    for (int i = 0; i < SLOT_LIST; ++i) v[i] = lds_f32(xs + (fl[2 * i] << 2));
+#pragma unroll
+    for (int i = 0; i < SLOT_LIST; ++i) {
+      const int row = (int)fl[2 * i + 1];
+      if (row >= 0) x[(size_t)row * B] = v[i];
+    }
+    // the flushes' reads before any refill's write; the refills of chunk
+    // cc - LEAD, landed for this thread at the wait, for every thread
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < SLOT_LIST; ++i) {
+      const int row = (int)re[2 * i + 1];
+      cp_async4_if(row >= 0, xs + (re[2 * i] << 2), b + (long long)row * B);
+    }
+    slot = slot == LEAD ? 0 : slot + 1;
+  }
+};
+
+// The resident kernel with x in a slot file of x_slots slots: `prologue`
+// (n_prologue pairs) is copied in before the first chunk, `lists` at the
+// chunk tops, `tail` (n_tail pairs) written out after the last chunk.
+template <int PLANES, int LPT>
+__global__ void __launch_bounds__(32 * Lanes<LPT>::MAX_WARPS)
+resident_kernel_slotted(const uint32_t* __restrict__ instr, const uint32_t* __restrict__ vals,
+                        const float* __restrict__ b, float* x, int T, int P, int n_rows, int B,
+                        int num_slots, int x_slots, const int* __restrict__ lists,
+                        const int* __restrict__ prologue, int n_prologue,
+                        const int* __restrict__ tail, int n_tail) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  using Lay = Layout<PLANES, LPT>;
+  using SF = SlotFile<LPT>;
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int col = blockIdx.x * nw + w;
+  const int fixed = Lay::fixed(num_slots), rfw = Lay::rf_words(num_slots);
+  uint32_t* base = smem + (size_t)w * fixed;
+  const unsigned rf_t = zero_rf(reinterpret_cast<float*>(base), rfw, t);
+  const Stream<PLANES, LPT> st{instr, vals, saddr(base + rfw) + 4 * LPT * t, T, P, t};
+  const unsigned mask = PLANES == 1 ? SRC_MASK : 0xffffffffu;
+  const int nch = (T + CHUNK - 1) / CHUNK;
+  uint32_t* lring = smem + (size_t)nw * fixed + (size_t)w * SF::words(x_slots);
+  const float* slots = reinterpret_cast<const float*>(lring + SF::RING_WORDS);
+  const unsigned xs = saddr(slots);
+  SF hook{lists + t * 2 * SLOT_LIST, b + col, x + col, saddr(lring) + SF::MINE * t, xs, B, nch};
+
+  // b of the rows whose FINAL comes first, and the lists of chunks 0 to LEAD - 1
+  for (int e = t; e < n_prologue; e += 32)
+    cp_async<4>(xs + 4 * prologue[2 * e],
+                reinterpret_cast<const uint32_t*>(b + (size_t)prologue[2 * e + 1] * B + col), true);
+#pragma unroll 1
+  for (int k = 0; k < SF::LEAD; ++k) hook.copy(k, k);
+  cp_async_commit();
+  if (t == 0) x[(size_t)(n_rows - 1) * B + col] = b[(size_t)(n_rows - 1) * B + col];  // padding
+  run_stream<PLANES, LPT>(st, rf_t, SmemRows{xs, mask}, nch, hook);
+  __syncwarp();
+  for (int e = t; e < n_tail; e += 32) x[(size_t)tail[2 * e + 1] * B + col] = slots[tail[2 * e]];
+}
+
 // The blocked kernel's boundaries, at the top of the chunk that starts a
 // cycle block.  `bstage` holds b of the rows entering at the next boundary.
 struct Boundaries {
@@ -727,6 +864,22 @@ cudaError_t resident(const void* instr, const void* vals, const void* b, void* x
   return cudaGetLastError();
 }
 
+template <int PLANES, int LPT>
+cudaError_t resident_slotted(const void* instr, const void* vals, const void* b, void* x, int T,
+                             int P, int n_rows, int B, int num_slots, int bt, int x_slots,
+                             const void* lists, const void* prologue, int n_prologue,
+                             const void* tail, int n_tail, cudaStream_t stream) {
+  const size_t smem = smem_bytes<PLANES, LPT>(num_slots, SlotFile<LPT>::words(x_slots), bt);
+  auto kernel = resident_kernel_slotted<PLANES, LPT>;
+  cudaError_t err = launch_prep(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B / bt, 32 * bt, smem, stream>>>(
+      (const uint32_t*)instr, (const uint32_t*)vals, (const float*)b, (float*)x, T, P, n_rows, B,
+      num_slots, x_slots, (const int*)lists, (const int*)prologue, n_prologue, (const int*)tail,
+      n_tail);
+  return cudaGetLastError();
+}
+
 template <int PLANES, int LPT, bool COMPACT>
 cudaError_t blocked(const void* instr, const void* vals, const void* b, void* x, int T, int P,
                     int B, int num_slots, int bt, int window, int stride, int cycles_per_block,
@@ -774,6 +927,22 @@ int sptrsv_resident(const void* instr, const void* vals, const void* b, void* x,
              : resident<PL, LP, false>(instr, vals, b, x, T, P, n_rows, B, num_slots, bt, s))
   SPTRSV_DISPATCH(planes, lpt, SPTRSV_RESIDENT)
 #undef SPTRSV_RESIDENT
+}
+
+// The resident solve with x in a slot file of x_slots slots; lists
+// [ceil(T / 8)][2][32][4][2], prologue [n_prologue][2] and tail [n_tail][2]
+// int32 (slot, row) pairs (kernels/sptrsv/kernel.py SlotFile).
+int sptrsv_resident_slotted(const void* instr, const void* vals, const void* b, void* x, int T,
+                            int planes, int P, int n_rows, int B, int num_slots, int bt,
+                            int x_slots, const void* lists, const void* prologue,
+                            int n_prologue, const void* tail, int n_tail, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int lpt = lanes_per_thread(P);
+#define SPTRSV_SLOTTED(PL, LP)                                                              \
+  resident_slotted<PL, LP>(instr, vals, b, x, T, P, n_rows, B, num_slots, bt, x_slots, lists, \
+                           prologue, n_prologue, tail, n_tail, s)
+  SPTRSV_DISPATCH(planes, lpt, SPTRSV_SLOTTED)
+#undef SPTRSV_SLOTTED
 }
 
 // b and x [n_hbm, B] f32 with n_hbm = (T / cycles_per_block - 1) * stride + window;

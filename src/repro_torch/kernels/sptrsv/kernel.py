@@ -5,8 +5,12 @@ CUDA C++ for ``sm_90a`` (`csrc/sptrsv.cu`, whose head note gives the
 design), each beside a plain PyTorch version of the same algorithm:
 
   * `sptrsv_cuda` replaces ``sptrsv_pallas``: the whole padded x vector per
-    CTA, in shared memory where it fits, else in device memory.
-    Plain version: `sptrsv_plain`.
+    CTA, in shared memory where it fits; else the rows live at once in a
+    file of shared-memory slots (a `SlotFile`, planned by
+    `ops.plan_slots`), each row copied in from b before its FINAL and
+    written out to x once final; else x in device memory.
+    Plain versions: `sptrsv_plain`, and `sptrsv_slotted_plain` for the
+    slot file.
   * `sptrsv_cuda_blocked` replaces ``sptrsv_pallas_blocked``: a ring of
     ``window`` x rows in shared memory that advances ``stride`` rows per
     cycle block, with retired rows flushed to device memory.
@@ -28,9 +32,10 @@ so kernel and twin round identically.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its kernel
-launches in ``<wrapper>.launches`` (`sptrsv_cuda` those with x in device
-memory in ``.x_in_device``, and `sptrsv_cuda_blocked` those of a
-compacted stream in ``.compacted``).  The CUDA library is built on first use
+launches in ``<wrapper>.launches`` (`sptrsv_cuda` those with a slot file
+in ``.x_slotted`` and those with x in device memory in ``.x_in_device``,
+and `sptrsv_cuda_blocked` those of a compacted stream in
+``.compacted``).  The CUDA library is built on first use
 (`build`, through `common.build_library`) with ``nvcc`` into ``build/`` at
 the repository root and loaded with ctypes.
 """
@@ -38,6 +43,7 @@ the repository root and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
 
 import torch
@@ -55,22 +61,28 @@ from repro_torch.core.program import (
 from repro_torch.kernels.common import build_library
 
 __all__ = [
+    "SlotFile",
     "build",
     "check_kernel_limits",
     "expand_lanes",
     "lanes_per_thread",
     "max_cols_per_cta",
     "ring_rows",
+    "slot_file_words",
     "smem_bytes_per_column",
+    "stream_lead_chunks",
     "stream_ring_cycles",
     "sptrsv_cuda",
     "sptrsv_cuda_blocked",
     "sptrsv_plain",
     "sptrsv_blocked_plain",
+    "sptrsv_slotted_plain",
     "COMPACT_WIDTHS",
     "LANE_SHIFT",
     "MAX_LANES",
     "MAX_SMEM_BYTES",
+    "SLOT_FLUSH_LAG",
+    "SLOT_LIST",
     "STREAM_CHUNK",
 ]
 
@@ -83,6 +95,9 @@ _ALIGN = 16             # bytes: the stream's cp.async copies
 COMPACT_WIDTHS = (32, 64, 128)  # slots a cycle of a lane-compacted stream
 LANE_SHIFT = 13         # csrc/sptrsv.cu: a compacted word's lane, above the upper field
 _UPPER_MASK = (1 << LANE_SHIFT) - 1
+SLOT_LIST = 4           # csrc/sptrsv.cu SLOT_LIST: a thread's entries of a chunk's list
+SLOT_FLUSH_LAG = 1      # csrc/sptrsv.cu SlotFile: chunk tops from a FINAL's chunk to its flush
+_SLOT_CHUNK_WORDS = 2 * 32 * SLOT_LIST * 2  # a chunk's two lists of (slot, row) pairs
 
 
 # ---------------------------------------------------------------------------
@@ -101,12 +116,26 @@ def max_cols_per_cta(p: int) -> int:
     return min(8, 16 // lanes_per_thread(p))
 
 
+def stream_lead_chunks(p: int) -> int:
+    """LEAD, the chunks of `STREAM_CHUNK` cycles the kernels' copies run
+    ahead of use (one cp.async group a chunk): 4 up to 64 lanes, 2 above.
+    A copy issued at the top of chunk c has landed, for every thread of
+    the warp, from chunk c + LEAD on."""
+    return 4 if lanes_per_thread(p) <= 2 else 2
+
+
 def stream_ring_cycles(p: int) -> int:
     """Cycles of instruction words the per-warp stream ring holds: LEAD + 1
-    chunks of `STREAM_CHUNK`, LEAD = 4 chunks in flight up to 64 lanes, 2
-    above."""
-    lead = 4 if lanes_per_thread(p) <= 2 else 2
-    return (lead + 1) * STREAM_CHUNK
+    chunks of `STREAM_CHUNK` (`stream_lead_chunks`)."""
+    return (stream_lead_chunks(p) + 1) * STREAM_CHUNK
+
+
+def slot_file_words(p: int, size: int) -> int:
+    """x words of one column's warp that keeps x in a slot file of ``size``
+    slots: the ring of the refill and flush lists (LEAD + 1 chunks of
+    `SLOT_LIST` (slot, row) pairs a thread and list) and the slots, padded
+    to 16 bytes (csrc/sptrsv.cu `SlotFile`)."""
+    return (stream_lead_chunks(p) + 1) * _SLOT_CHUNK_WORDS + -(-size // 4) * 4
 
 
 def ring_rows(window: int) -> int:
@@ -173,6 +202,34 @@ def check_kernel_limits(p: int, planes: int, num_slots: int, cols_per_cta: int,
         raise ValueError(f"the blocked kernel takes cycles_per_block >= 1, "
                          f"got {cycles_per_block}")
 
+
+@dataclasses.dataclass(frozen=True)
+class SlotFile:
+    """A resident solve's x kept in ``size`` shared-memory slots, one a row
+    from the copy of its b until its last read (`ops.plan_slots`); the
+    stream's words name slots, not rows.
+
+    ``lists`` is int32 ``[chunks, 2, 32, SLOT_LIST, 2]``, one chunk for
+    every `STREAM_CHUNK` cycles of the stream: at the top of chunk c its
+    flush list (list 1) writes x of each row from its slot, and then its
+    refill list (list 0) starts the copy of each row's b into its slot,
+    which a FINAL may read from chunk c + `stream_lead_chunks` on.  Entry
+    e of a list lies at ``[c, list, e % 32, e // 32]``, a (slot, row)
+    pair, row -1 where unused.  ``prologue`` (refills before chunk 0) and
+    ``tail`` (flushes after the last chunk) are int32 ``[k, 2]`` pairs.
+    """
+
+    size: int
+    lists: torch.Tensor
+    prologue: torch.Tensor
+    tail: torch.Tensor
+
+    def to(self, device) -> SlotFile:
+        return dataclasses.replace(self, lists=self.lists.to(device),
+                                   prologue=self.prologue.to(device),
+                                   tail=self.tail.to(device))
+
+
 _LIB: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -188,6 +245,8 @@ def build() -> ctypes.CDLL:
     lib.sptrsv_error_string.restype = ctypes.c_char_p
     lib.sptrsv_resident.argtypes = [_P] * 4 + [_I] * 8 + [_P]
     lib.sptrsv_resident.restype = _I
+    lib.sptrsv_resident_slotted.argtypes = [_P] * 4 + [_I] * 8 + [_P, _P, _I, _P, _I, _P]
+    lib.sptrsv_resident_slotted.restype = _I
     lib.sptrsv_blocked.argtypes = [_P] * 4 + [_I] * 11 + [_P]
     lib.sptrsv_blocked.restype = _I
     _LIB = lib
@@ -290,6 +349,63 @@ def sptrsv_plain(instr, values, b, *, num_slots: int):
     return x
 
 
+def _pairs(a):
+    """The used (slot, row) pairs of ``a`` (``[..., 2]``) as two long
+    tensors, in entry order."""
+    a = a.reshape(-1, 2).long()
+    a = a[a[:, 1] >= 0]
+    return a[:, 0], a[:, 1]
+
+
+def sptrsv_slotted_plain(instr, values, b, *, num_slots: int, slot_file: SlotFile):
+    """Plain PyTorch version of `sptrsv_cuda` with a slot file (any device).
+
+    ``instr`` is the stream whose words name slots of ``slot_file``; ``b``
+    and the result are ``[n + 1, B]`` as for `sptrsv_plain`.  Runs the
+    kernel's schedule chunk by chunk, as late as the kernel allows: at the
+    top of chunk c its flush list reads x from the slots, refills issued
+    `stream_lead_chunks` tops before land, and the slots of its refill list
+    turn NaN (their occupants leave; the copy may land from now on).  A row
+    read before its b has landed, or after its slot was given to another
+    row, reads NaN, and x starts out NaN, so a plan that flushes a row too
+    early, or never, shows in the result.
+    """
+    _check_inputs(instr, values, b, num_slots)
+    t_pad, _, p = instr.shape
+    op, src, ct, sl = _decode(instr)
+    lead = stream_lead_chunks(p)
+    chunks = -(-t_pad // STREAM_CHUNK)
+    if slot_file.lists.shape[0] != chunks:
+        raise ValueError(f"the slot file's lists cover {slot_file.lists.shape[0]} "
+                         f"chunks, the stream {chunks}")
+    lists = slot_file.lists.to(b.device)
+    xs = b.new_full((slot_file.size + 1, b.shape[1]), float("nan"))
+    xs[-1] = 0.0  # the dummy slot that absorbs the scatter of non-FINAL lanes
+    x = torch.full_like(b, float("nan"))
+    x[-1] = b[-1]
+    slots, rows = _pairs(slot_file.prologue.to(b.device))
+    xs[slots] = b[rows]
+    landing = {}
+    fb = b.new_zeros(p, b.shape[1])
+    rf = b.new_zeros(p, num_slots, b.shape[1])
+    lanes = torch.arange(p, device=b.device)
+    for c in range(chunks):
+        slots, rows = _pairs(lists[c, 1])
+        x[rows] = xs[slots]
+        if c in landing:
+            slots, rows = landing.pop(c)
+            xs[slots] = b[rows]
+        slots, rows = _pairs(lists[c, 0])
+        xs[slots] = float("nan")
+        landing[c + lead] = slots, rows
+        for t in range(c * STREAM_CHUNK, min(t_pad, (c + 1) * STREAM_CHUNK)):
+            fb = _exec_cycle(op[t], src[t], ct[t], sl[t], values[t], xs, fb, rf,
+                             lanes, slot_file.size)
+    slots, rows = _pairs(slot_file.tail.to(b.device))
+    x[rows] = xs[slots]
+    return x
+
+
 def sptrsv_blocked_plain(instr, values, b, *, window: int, stride: int,
                          cycles_per_block: int, num_slots: int):
     """Plain PyTorch version of `sptrsv_cuda_blocked` (any device).
@@ -388,36 +504,74 @@ def _stream():
 
 
 def sptrsv_cuda(instr, values, b, *, num_slots: int, x_in_smem: bool = True,
-                cols_per_cta: int = 1):
+                cols_per_cta: int = 1, slot_file: SlotFile | None = None):
     """Resident solve: ``b[n + 1, B] -> x[n + 1, B]`` (replaces ``sptrsv_pallas``).
 
-    One warp per column, ``cols_per_cta`` columns per CTA.  ``x_in_smem``
-    keeps each column's x in shared memory (the caller checks that
-    ``n + 1`` rows per column fit beside the psum file and stream ring, see
-    `ops.state_bytes`); otherwise x stays in device memory, and the launch
-    is counted in ``.x_in_device`` too.  Every word
-    must name a row of ``b`` and one of ``num_slots`` psum slots, NOP words
-    included (the kernel loads both for every lane), as `sptrsv_plain`
-    also requires, and carry no bit past its packed fields
-    (`ops._check_stream` checks staged streams).  CPU tensors go to
-    `sptrsv_plain`.
+    One warp per column, ``cols_per_cta`` columns per CTA.  With a
+    ``slot_file`` (`ops.plan_slots`, on the device of ``b``; it takes
+    ``x_in_smem=False``, as the whole x is not in shared memory) the words
+    name its slots, each column's warp keeps them in shared memory
+    (`slot_file_words`), and the launch is counted in ``.x_slotted``.
+    Without one, ``x_in_smem`` keeps each column's x in shared memory (the
+    caller checks that ``n + 1`` rows per column fit beside the psum file
+    and stream ring, see `ops.state_bytes`); otherwise x stays in device
+    memory, and the launch is counted in ``.x_in_device``.  Every word
+    must name a row of ``b`` (a slot of the file) and one of ``num_slots``
+    psum slots, NOP words included (the kernel loads both for every lane),
+    as `sptrsv_plain` also requires, and carry no bit past its packed
+    fields (`ops._check_stream` checks staged streams).  CPU tensors go to
+    `sptrsv_plain`, or `sptrsv_slotted_plain` with a slot file.
     """
     _check_inputs(instr, values, b, num_slots)
+    slotted = slot_file is not None
+    if slotted and x_in_smem:
+        raise ValueError("a slot file keeps only the live rows of x in shared "
+                         "memory: pass x_in_smem=False with it")
     if b.device.type == "cpu":
+        if slotted:
+            return sptrsv_slotted_plain(instr, values, b, num_slots=num_slots,
+                                        slot_file=slot_file)
         return sptrsv_plain(instr, values, b, num_slots=num_slots)
     _check_cuda(instr, values, b, num_slots, cols_per_cta)
     lib = build()
     t, planes, p = instr.shape
     x = torch.empty_like(b)
     with torch.cuda.device(b.device):
-        rc = lib.sptrsv_resident(
-            instr.data_ptr(), values.data_ptr(), b.data_ptr(), x.data_ptr(),
-            t, planes, p, b.shape[0], b.shape[1], num_slots, cols_per_cta,
-            int(bool(x_in_smem)), _stream())
+        if slotted:
+            _check_slot_file(slot_file, t, b)
+            pro, tail = slot_file.prologue, slot_file.tail
+            rc = lib.sptrsv_resident_slotted(
+                instr.data_ptr(), values.data_ptr(), b.data_ptr(), x.data_ptr(),
+                t, planes, p, b.shape[0], b.shape[1], num_slots, cols_per_cta,
+                slot_file.size, slot_file.lists.data_ptr(), pro.data_ptr(), pro.shape[0],
+                tail.data_ptr(), tail.shape[0], _stream())
+        else:
+            rc = lib.sptrsv_resident(
+                instr.data_ptr(), values.data_ptr(), b.data_ptr(), x.data_ptr(),
+                t, planes, p, b.shape[0], b.shape[1], num_slots, cols_per_cta,
+                int(bool(x_in_smem)), _stream())
     _raise_on(lib, rc, "sptrsv_resident")
     sptrsv_cuda.launches += 1
-    sptrsv_cuda.x_in_device += not x_in_smem
+    sptrsv_cuda.x_slotted += slotted
+    sptrsv_cuda.x_in_device += not (x_in_smem or slotted)
     return x
+
+
+def _check_slot_file(sf: SlotFile, t: int, b) -> None:
+    """The slot file's tensors as the kernel takes them: int32, contiguous,
+    on ``b``'s device, lists 16-byte aligned over the stream's chunks."""
+    chunks = -(-t // STREAM_CHUNK)
+    if tuple(sf.lists.shape) != (chunks, 2, 32, SLOT_LIST, 2):
+        raise ValueError(f"slot file lists {tuple(sf.lists.shape)}, not "
+                         f"{(chunks, 2, 32, SLOT_LIST, 2)} for {t} cycles")
+    for a in (sf.lists, sf.prologue, sf.tail):
+        if a.dtype != torch.int32 or not a.is_contiguous() or a.device != b.device:
+            raise ValueError("the slot file's lists must be contiguous int32 on the "
+                             "device of b")
+    if sf.lists.data_ptr() % _ALIGN:
+        raise ValueError(f"the slot file's lists must start on a {_ALIGN}-byte boundary")
+    if sf.size < 1:
+        raise ValueError(f"a slot file holds at least one slot, got {sf.size}")
 
 
 def sptrsv_cuda_blocked(instr, values, b, *, window: int, stride: int,
@@ -468,6 +622,7 @@ def sptrsv_cuda_blocked(instr, values, b, *, window: int, stride: int,
 
 
 sptrsv_cuda.launches = 0
+sptrsv_cuda.x_slotted = 0
 sptrsv_cuda.x_in_device = 0
 sptrsv_cuda_blocked.launches = 0
 sptrsv_cuda_blocked.compacted = 0

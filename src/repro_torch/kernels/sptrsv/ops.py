@@ -3,8 +3,9 @@
 Ports `repro/kernels/sptrsv/ops.py`.  Two placements of the solve state:
 
   * ``resident`` — every CTA holds the whole padded x vector of its RHS
-    columns (`kernel.sptrsv_cuda`), in shared memory where it fits, else in
-    device memory;
+    columns (`kernel.sptrsv_cuda`), in shared memory where it fits; else
+    the rows live at once, in a file of shared-memory slots that rows take
+    and give back as the stream runs (`plan_slots`); else in device memory;
   * ``blocked``  — every CTA holds a ring of x rows (the power of two at
     or above ``window``) in shared memory that slides ``stride`` rows per
     cycle block over x and b in device memory, and a staging area for the
@@ -21,8 +22,8 @@ share an SM's issue slots (2 and 4 measured no faster on the H100), and
 one column per CTA spreads a batch over the most SMs.  ``placement="auto"``
 keeps the resident placement while its x fits in shared memory, goes
 blocked beyond that when the program's row envelope admits a window
-(`plan_window`) that fits, and otherwise stays resident with x in device
-memory.
+(`plan_window`) that fits, and otherwise stays resident: with x in a slot
+file where the slots fit, else with x in device memory.
 
 Staging does what the hardware's stream memory does: values are gathered
 per instruction word so the kernels stream them positionally, NOP lanes'
@@ -35,13 +36,14 @@ idle (`compact_lanes`): the warp runs fewer words a thread each cycle.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 
 import numpy as np
 import torch
 
 from repro_torch.core.errors import PlacementInfeasibleError
 from repro_torch.core.executor import _psum_slots, as_batch
-from repro_torch.core.program import SRC_BITS, Program, decode_instructions
+from repro_torch.core.program import OP_EDGE, OP_FINAL, SRC_BITS, Program, decode_instructions
 from repro_torch.kernels.common import resolve_device
 from repro_torch.spans import span
 
@@ -49,10 +51,16 @@ from .kernel import (
     COMPACT_WIDTHS,
     LANE_SHIFT,
     MAX_SMEM_BYTES,
+    SLOT_FLUSH_LAG,
+    SLOT_LIST,
+    STREAM_CHUNK,
+    SlotFile,
     ring_rows,
+    slot_file_words,
     smem_bytes_per_column,
     sptrsv_cuda,
     sptrsv_cuda_blocked,
+    stream_lead_chunks,
 )
 
 __all__ = [
@@ -61,9 +69,11 @@ __all__ = [
     "resolve_placement",
     "build_solver_cols",
     "compact_lanes",
+    "plan_slots",
     "instr_buffer_bytes",
     "state_bytes",
     "WindowPlan",
+    "SlotPlan",
     "DEFAULT_SMEM_BYTES",
     "COLS_PER_CTA",
 ]
@@ -310,6 +320,143 @@ def compact_lanes(instr: np.ndarray, values: np.ndarray):
     return out.reshape(t, 2, width), vals.reshape(t, width), width
 
 
+@dataclasses.dataclass(frozen=True)
+class SlotPlan:
+    """Where each row of x lives in a resident solve's slot file
+    (`plan_slots`).
+
+    Chunks are `kernel.STREAM_CHUNK` cycles of the staged stream.  Row r's
+    b is copied into slot ``slot[r]`` at the top of chunk ``refill[r]``
+    (-1: before the first), its FINAL runs in chunk ``final[r]``, its x is
+    written out at the top of chunk ``flush[r]`` (``chunks``: after the
+    last), and it holds the slot through chunk ``release[r]``: the later of
+    its last read and the chunk before its flush.  A slot is refilled only
+    at a chunk after its last occupant's release, and each chunk's refill
+    and flush lists hold at most ``32 * kernel.SLOT_LIST`` rows.
+    """
+
+    size: int
+    chunks: int
+    lead: int
+    slot: np.ndarray
+    refill: np.ndarray
+    final: np.ndarray
+    flush: np.ndarray
+    release: np.ndarray
+
+    def words(self, instr: np.ndarray) -> np.ndarray:
+        """``instr`` (staged, ``[T, planes, P]``) with every EDGE and FINAL
+        word naming its row's slot, and every other word slot 0."""
+        op, src, _, _ = decode_instructions(instr, instr.shape[1])
+        named = (op == OP_EDGE) | (op == OP_FINAL)
+        slot = np.where(named, self.slot[np.where(named, src, 0)], 0).astype(np.int32)
+        out = instr.copy()
+        if instr.shape[1] == 1:
+            out[:, 0] = (instr[:, 0] & ~np.int32((1 << SRC_BITS) - 1)) | slot
+        else:
+            out[:, 0] = slot
+        return out
+
+    def file(self) -> SlotFile:
+        """The kernel's refill and flush lists (`kernel.SlotFile`, CPU
+        tensors)."""
+        cap = 32 * SLOT_LIST
+        flat = np.zeros((self.chunks, 2, cap, 2), np.int32)
+        flat[..., 1] = -1
+        for k, when in enumerate((self.refill, self.flush)):
+            rows = np.flatnonzero((when >= 0) & (when < self.chunks))
+            rows = rows[np.argsort(when[rows], kind="stable")]
+            chunk = when[rows]
+            pos = np.arange(rows.size) - np.searchsorted(chunk, chunk)
+            flat[chunk, k, pos] = np.stack([self.slot[rows], rows], 1)
+        # entry e of a list to thread e % 32, its (e // 32)-th
+        lists = flat.reshape(self.chunks, 2, SLOT_LIST, 32, 2).transpose(0, 1, 3, 2, 4)
+
+        def pairs(rows):
+            return torch.from_numpy(np.stack([self.slot[rows], rows], 1).astype(np.int32))
+
+        return SlotFile(self.size, torch.from_numpy(np.ascontiguousarray(lists)),
+                        pairs(np.flatnonzero(self.refill < 0)),
+                        pairs(np.flatnonzero(self.flush >= self.chunks)))
+
+
+def _served(arrivals: np.ndarray, cap: int) -> np.ndarray:
+    """Rows a queue serves at each step, at most ``cap`` a step, first come
+    first served, of ``arrivals[i]`` rows arriving at step i."""
+    served = np.zeros_like(arrivals)
+    queued = 0
+    for i, a in enumerate(arrivals.tolist()):
+        queued += a
+        served[i] = min(cap, queued)
+        queued -= served[i]
+    return served
+
+
+def plan_slots(prog: Program, lead: int, cycles: int | None = None) -> SlotPlan | None:
+    """The slot file of a resident solve (`SlotPlan`), or ``None`` where a
+    row of the program has no FINAL, or two, or is read before its FINAL.
+
+    A row takes a slot from the copy of its b to its last read.  ``lead``
+    is the chunks a copy takes to land (`kernel.stream_lead_chunks` of the
+    program's lanes), so row r's b is copied at the top of chunk ``final -
+    lead`` at the latest; where that chunk's refill list is full it is
+    copied earlier, the latest-needed rows first (before the first chunk
+    where none is left).  Its x is written out at the top of the chunk
+    after its FINAL's (`kernel.SLOT_FLUSH_LAG`), or later where that
+    chunk's flush list is full, the rows whose slot waits only on the flush
+    first (after the last chunk where none is left).  The rows are then
+    coloured, in order of refill, into the slots that earlier rows released
+    before it, the one released last first, else a new one.  ``cycles`` is
+    the staged stream's length (default the program's).
+    """
+    n, t = prog.n, prog.cycles
+    chunks = -(-(cycles or t) // STREAM_CHUNK)
+    cap = 32 * SLOT_LIST
+    op, src, _, _ = decode_instructions(prog.instr, prog.planes)
+    cyc = np.broadcast_to(np.arange(t)[:, None], op.shape)
+    fin, edge = op == OP_FINAL, op == OP_EDGE
+    if np.bincount(src[fin], minlength=n).tolist() != [1] * n:
+        return None
+    final_t = np.empty(n, np.int64)
+    final_t[src[fin]] = cyc[fin]
+    if (cyc[edge] <= final_t[src[edge]]).any():
+        return None
+    last_t = final_t.copy()
+    np.maximum.at(last_t, src[edge], cyc[edge])
+    final, last = final_t // STREAM_CHUNK, last_t // STREAM_CHUNK
+
+    # refills, from the last chunk back: a row is due at final - lead
+    due = final - lead
+    by_due = np.argsort(-due, kind="stable")
+    served = _served(np.bincount(due[due >= 0], minlength=chunks)[::-1], cap)
+    refill = np.full(n, -1, np.int64)
+    refill[by_due[:served.sum()]] = np.repeat(np.arange(chunks - 1, -1, -1), served)
+
+    # flushes: rows final in chunk c arrive at c + SLOT_FLUSH_LAG
+    by_final = np.lexsort((last, final))
+    arrivals = np.bincount(final + SLOT_FLUSH_LAG, minlength=chunks + SLOT_FLUSH_LAG)[:chunks]
+    served = _served(arrivals, cap)
+    flush = np.full(n, chunks, np.int64)
+    flush[by_final[:served.sum()]] = np.repeat(np.arange(chunks), served)
+    release = np.maximum(last, flush - 1)
+
+    # colour the intervals [refill, release] in order of refill
+    slot = np.empty(n, np.int64)
+    busy, free, size = [], [], 0
+    rel = release.tolist()
+    for r, a in zip(np.argsort(refill, kind="stable").tolist(), np.sort(refill).tolist()):
+        while busy and busy[0][0] < a:
+            free.append(heapq.heappop(busy)[1])
+        if free:
+            s = free.pop()
+        else:
+            s, size = size, size + 1
+        slot[r] = s
+        heapq.heappush(busy, (rel[r], s))
+    return SlotPlan(size=size, chunks=chunks, lead=lead, slot=slot, refill=refill,
+                    final=final, flush=flush, release=release)
+
+
 def _check_stream(instr: np.ndarray, n_slots: int, n_rows: int,
                   plan: WindowPlan | None, cycles_per_block: int,
                   lanes: int | None = None) -> None:
@@ -356,6 +503,17 @@ def _check_stream(instr: np.ndarray, n_slots: int, n_rows: int,
                          "rows its cycle may address")
 
 
+def _check_slot_lists(sf: SlotFile, n_rows: int) -> None:
+    """The kernel indexes its slots and b and x with the slot file's
+    entries unchecked: refuse a used entry whose slot is past the file or
+    whose row is past x, once per staging."""
+    for pairs in (sf.lists.reshape(-1, 2), sf.prologue, sf.tail):
+        used = pairs[pairs[:, 1] >= 0]
+        if ((used[:, 0] < 0) | (used[:, 0] >= sf.size) | (used[:, 1] >= n_rows)).any():
+            raise ValueError(f"a slot file entry names a slot past its {sf.size} "
+                             f"or a row past the {n_rows} x rows")
+
+
 def build_solver_cols(
     prog: Program,
     width: int,
@@ -372,10 +530,14 @@ def build_solver_cols(
     resolves the memory placement, and returns a closure for the
     per-(program, knobs, device) executor cache
     (`executor.make_cuda_executor`).  The chosen regime is exposed as
-    ``closure.placement`` / ``closure.plan`` / ``closure.x_in_smem``, and
-    the slots a cycle of the staged stream as ``closure.lanes``: W where
-    the blocked kernel runs it lane-compacted (`compact_lanes`, where that
-    still fits ``smem_limit_bytes``), else P.
+    ``closure.placement`` / ``closure.plan`` / ``closure.x_in_smem``, the
+    slot file of a resident x that does not fit shared memory whole as
+    ``closure.slot_file`` (`plan_slots`, where its slots fit
+    ``smem_limit_bytes``; else ``None``, x in device memory) and its slots
+    as ``closure.x_slots`` (0 without one), and the slots a cycle of the
+    staged stream as ``closure.lanes``: W where the blocked kernel runs it
+    lane-compacted (`compact_lanes`, where that still fits
+    ``smem_limit_bytes``), else P.
     """
     dev = resolve_device(device)
     if smem_limit_bytes is None:
@@ -395,11 +557,25 @@ def build_solver_cols(
         if slots_w < p and COLS_PER_CTA * smem_bytes_per_column(
                 slots_w, 2, n_slots, plan.x_words(), lanes=p) <= smem_limit_bytes:
             instr_np, values_np, lanes = ci, cv, p
-    _check_stream(instr_np, n_slots, n_rows, plan, cycles_per_block, lanes)
-    instr = torch.from_numpy(instr_np).to(dev)
-    values = torch.from_numpy(values_np).to(dev)
     x_in_smem = mode == "blocked" or state_bytes(
         prog, placement="resident")["total"] <= smem_limit_bytes
+    slots = None  # where the resident kernel keeps x in a slot file
+    if not x_in_smem:
+        slots = plan_slots(prog, stream_lead_chunks(p), instr_np.shape[0])
+        if slots is not None and COLS_PER_CTA * smem_bytes_per_column(
+                p, prog.planes, n_slots, slot_file_words(p, slots.size)) <= smem_limit_bytes:
+            instr_np = slots.words(instr_np)
+        else:
+            slots = None
+    _check_stream(instr_np, n_slots, n_rows if slots is None else slots.size, plan,
+                  cycles_per_block, lanes)
+    instr = torch.from_numpy(instr_np).to(dev)
+    values = torch.from_numpy(values_np).to(dev)
+    slot_file = None
+    if slots is not None:
+        slot_file = slots.file()
+        _check_slot_lists(slot_file, n_rows)
+        slot_file = slot_file.to(dev)
 
     def solve_cols(bmat: torch.Tensor) -> torch.Tensor:
         with span("sptrsv.rhs_stage"):
@@ -408,7 +584,8 @@ def build_solver_cols(
         with span("sptrsv.launch"):
             if mode == "resident":
                 x = sptrsv_cuda(instr, values, bp, num_slots=n_slots,
-                                x_in_smem=x_in_smem, cols_per_cta=COLS_PER_CTA)
+                                x_in_smem=x_in_smem, cols_per_cta=COLS_PER_CTA,
+                                slot_file=slot_file)
             else:
                 x = sptrsv_cuda_blocked(
                     instr, values, bp, window=plan.window, stride=plan.stride,
@@ -419,6 +596,8 @@ def build_solver_cols(
     solve_cols.placement = mode
     solve_cols.plan = plan
     solve_cols.x_in_smem = x_in_smem
+    solve_cols.x_slots = 0 if slots is None else slots.size
+    solve_cols.slot_file = slot_file
     solve_cols.lanes = instr.shape[2]
     solve_cols.staged = (instr, values)
     return solve_cols

@@ -14,7 +14,11 @@ the blocked kernel on the row words its twin takes, at block lengths of 3
 to 128 cycles (the wrapper pads a block to whole 8-cycle chunks), and on
 the band archetype's lane-compacted stream, bit for bit the stream as
 staged, one ``blocked_kernel`` launch a solve; the
-slice end to end against the serial forward substitution; the solve API's
+slice end to end against the serial forward substitution; the resident
+kernel with x in a slot file (`ops.plan_slots`) at every lane width, both
+planes and 1 to 4 columns per CTA, bit for bit the twin on the row stream,
+and the slotted, shared and device-memory solves of one program to the same
+bits, each counted where due; the solve API's
 upper, transpose-pair, circuit and split workloads through both kernels
 (and the resident kernel with x in device memory), bit for bit against
 the same solve on the plain twins and within 1e-5 of the float64 oracles;
@@ -129,6 +133,27 @@ def _resident_case(prog, instr, values, b, configs):
             want, prog.n)
 
 
+def _slotted_case(prog, instr, values, b, cols_list):
+    """The resident kernel with x in a slot file (`ops.plan_slots`, on the
+    stream rewritten to slots) at each columns-per-CTA of ``cols_list``:
+    bit for bit the plain twin on the row stream, each launch counted in
+    ``.x_slotted`` and not in ``.x_in_device``."""
+    p = prog.num_cus
+    plan = ops.plan_slots(prog, kernel.stream_lead_chunks(p), instr.shape[0])
+    words = torch.from_numpy(plan.words(instr.cpu().numpy())).to(b.device)
+    sf = plan.file().to(b.device)
+    slots = _psum_slots(prog)
+    want = kernel.sptrsv_plain(instr, values, b, num_slots=slots)
+    w = kernel.sptrsv_cuda
+    for cols in cols_list:
+        fits = _fits(prog, cols, kernel.slot_file_words(p, plan.size))
+        before = (w.x_slotted, w.x_in_device)
+        _check_launch(w, fits, lambda: w(words, values, b, num_slots=slots,
+                                         cols_per_cta=cols, x_in_smem=False,
+                                         slot_file=sf), want, prog.n)
+        assert (w.x_slotted, w.x_in_device) == (before[0] + fits, before[1])
+
+
 def _blocked_case(prog, cpb, cuda, seed, cols_list):
     plan = ops.plan_window(prog, cpb)
     assert plan.feasible
@@ -150,6 +175,7 @@ def test_resident_kernel_matches_plain(cuda, name, planes):
     instr, values, b = _staged(prog, 128, prog.n + 1, 16, 3, cuda)
     _resident_case(prog, instr, values, b,
                    ((True, 1), (True, 2), (True, 4), (False, 1), (False, 2), (False, 4)))
+    _slotted_case(prog, instr, values, b, (1, 2, 4))
 
 
 @pytest.mark.cuda
@@ -169,6 +195,7 @@ def test_kernels_at_fewer_than_32_lanes(cuda, num_cus, planes, name):
     assert prog.num_cus == num_cus
     instr, values, b = _staged(prog, 128, prog.n + 1, 16, num_cus, cuda)
     _resident_case(prog, instr, values, b, ((True, 1), (True, 2), (True, 4), (False, 4)))
+    _slotted_case(prog, instr, values, b, (1, 4))
     # 64 cycles a block: 8 stream chunks, past the lead of 4 (blocks shorter
     # than the lead: test_blocked_kernel_at_any_block_length)
     _blocked_case(prog, 64, cuda, num_cus + planes, (1, 2, 4))
@@ -240,6 +267,7 @@ def test_resident_kernel_at_128_and_256_lanes(cuda, num_cus, planes, name):
     assert prog.num_cus == num_cus
     instr, values, b = _staged(prog, 128, prog.n + 1, 16, num_cus + planes, cuda)
     _resident_case(prog, instr, values, b, ((True, 1), (True, 2), (False, 1), (False, 2)))
+    _slotted_case(prog, instr, values, b, (1, 2))
 
 
 @pytest.mark.cuda
@@ -252,19 +280,6 @@ def test_resident_kernel_on_a_stream_cut_off_mid_chunk(cuda, cut):
     t = prog.cycles - cut
     _resident_case(prog, instr[:t].contiguous(), values[:t].contiguous(), b,
                    ((True, 1), (False, 2)))
-
-
-def _blocked_kernels(run):
-    """``run()`` under the profiler: (its result, the names of the device
-    kernels it ran whose name contains ``blocked_kernel``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = run()
-        torch.cuda.synchronize()
-    cuda_dev = torch.autograd.DeviceType.CUDA
-    return out, [e.name() for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == cuda_dev and "blocked_kernel" in e.name()]
 
 
 @pytest.mark.cuda
@@ -287,10 +302,11 @@ def test_compacted_blocked_launch_is_bit_identical(cuda, batch):
     want = kernel.sptrsv_blocked_plain(instr, values, b, **kw)
     w = kernel.sptrsv_cuda_blocked
     before = (w.launches, w.compacted)
-    full, names = _blocked_kernels(lambda: w(instr, values, b, **kw))
+    full, names = _device_kernels(lambda: w(instr, values, b, **kw), "blocked_kernel")
     assert (w.launches, w.compacted) == (before[0] + 1, before[1])
     assert len(names) == 1
-    got, names = _blocked_kernels(lambda: w(ci, cv, b, program_lanes=64, **kw))
+    got, names = _device_kernels(lambda: w(ci, cv, b, program_lanes=64, **kw),
+                                  "blocked_kernel")
     assert (w.launches, w.compacted) == (before[0] + 2, before[1] + 1)
     assert len(names) == 1, names
     torch.testing.assert_close(got, full, **EXACT)
@@ -299,7 +315,7 @@ def test_compacted_blocked_launch_is_bit_identical(cuda, batch):
 
     solver = ops.build_solver_cols(prog, batch, placement="blocked", device=cuda)
     assert solver.lanes == 32
-    x, names = _blocked_kernels(lambda: solver(b[:prog.n]))
+    x, names = _device_kernels(lambda: solver(b[:prog.n]), "blocked_kernel")
     assert (w.launches, w.compacted) == (before[0] + 3, before[1] + 2)
     assert len(names) == 1, names
     torch.testing.assert_close(x, want[:prog.n], **EXACT)
@@ -343,23 +359,80 @@ def test_refused_launch_raises(cuda):
 
 @pytest.mark.cuda
 def test_launch_with_x_in_device_memory_is_counted(cuda):
-    """A resident solve whose x does not fit the shared-memory limit keeps x
-    in device memory and counts its launch in ``.x_in_device``; at the
-    default limit the same program's x fits and adds nothing there."""
+    """A resident solve whose x does not fit the shared-memory limit, nor
+    its slot file, keeps x in device memory and counts its launch in
+    ``.x_in_device``; at the default limit the same program's x fits and
+    adds nothing there."""
     prog = api.compile(api.matrix("ckt_rajat04"))
     x_bytes = ops.state_bytes(prog, placement="resident")["x"]
+    limit = min(x_bytes, _slot_file_bytes(prog)) - 1
     b = np.random.default_rng(24).standard_normal(prog.n).astype(np.float32)
     w = kernel.sptrsv_cuda
     answers = []
-    for limit, x_in_smem in ((x_bytes - 1, False), (None, True)):
+    for limit, x_in_smem in ((limit, False), (None, True)):
         solver = api.make_solver(prog, backend="cuda", placement="resident",
                                  smem_limit_bytes=limit)
-        assert solver.x_in_smem is x_in_smem
-        before = (w.launches, w.x_in_device)
+        assert (solver.x_in_smem, solver.x_slots) == (x_in_smem, 0)
+        before = (w.launches, w.x_in_device, w.x_slotted)
         answers.append(solver(b).cpu())
         torch.cuda.synchronize()
-        assert (w.launches, w.x_in_device) == (before[0] + 1, before[1] + (not x_in_smem))
+        assert (w.launches, w.x_in_device, w.x_slotted) == (
+            before[0] + 1, before[1] + (not x_in_smem), before[2])
     torch.testing.assert_close(answers[0], answers[1], **EXACT)
+
+
+def _slot_file_bytes(prog):
+    """Shared memory of one column's warp with x in the program's slot file."""
+    p = prog.num_cus
+    size = ops.plan_slots(prog, kernel.stream_lead_chunks(p),
+                          ops._stage_instructions(prog, 128)[0].shape[0]).size
+    return kernel.smem_bytes_per_column(p, prog.planes, _psum_slots(prog),
+                                        kernel.slot_file_words(p, size))
+
+
+def _device_kernels(run, part):
+    """``run()`` under the profiler: (its result, the names of the device
+    kernels it ran whose name contains ``part``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    cuda_dev = torch.autograd.DeviceType.CUDA
+    return out, [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda_dev and part in e.name()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 5])
+def test_slotted_launch_is_counted_and_bit_identical(cuda, batch):
+    """A circuit whose x outgrows the limit but whose live rows fit a slot
+    file: the solver keeps x in the slot file (``x_slots``), one device
+    kernel named ``resident_kernel...`` a solve, counted in ``.x_slotted``
+    and not in ``.x_in_device``; its answer bit for bit the shared-memory
+    and the device-memory solves' and the CPU twin's."""
+    prog = api.compile(api.matrix("ckt_add32"))
+    slotted = _slot_file_bytes(prog)
+    assert slotted < ops.state_bytes(prog, placement="resident")["total"]
+    b = np.random.default_rng(25).standard_normal((prog.n, batch)).astype(np.float32)
+    w = kernel.sptrsv_cuda
+    answers, sizes = {}, {}
+    for name, limit in (("shared", None), ("slots", slotted), ("device", slotted - 1)):
+        solver = api.make_solver(prog, batch=batch, backend="cuda", smem_limit_bytes=limit)
+        assert (solver.placement, solver.x_in_smem) == ("resident", name == "shared")
+        sizes[name] = solver.x_slots
+        assert (sizes[name] > 0) == (name == "slots")
+        before = (w.launches, w.x_slotted, w.x_in_device)
+        answers[name], names = _device_kernels(lambda: solver(b).cpu(), "resident_kernel")
+        assert len(names) == 1, names
+        assert (w.launches, w.x_slotted, w.x_in_device) == (
+            before[0] + 1, before[1] + (name == "slots"), before[2] + (name == "device"))
+    twin = api.make_solver(prog, batch=batch, backend="cuda", smem_limit_bytes=slotted,
+                           device="cpu")
+    assert twin.x_slots == sizes["slots"]
+    answers["twin"] = twin(b)
+    for name in ("slots", "device", "twin"):
+        torch.testing.assert_close(answers[name], answers["shared"], **EXACT)
 
 
 @pytest.mark.cuda
@@ -890,6 +963,7 @@ def test_random_programs_on_card(cuda, mat, cfg, planes, cpb, bseed):
                     lambda: kernel.sptrsv_cuda(instr, values, b, num_slots=slots,
                                                x_in_smem=x_in_smem, cols_per_cta=c),
                     twin, n)
+        _slotted_case(prog, instr, values, b, (cols[0], cols[-1]))
         if nb == 5:
             _refused(kernel.sptrsv_cuda, lambda: kernel.sptrsv_cuda(
                 instr, values, b, num_slots=slots, cols_per_cta=2), "must divide")

@@ -8,7 +8,9 @@ program bit for bit in both word planes; the port's `execute_numpy` equals
 the reference's and its torch executor (CPU) agrees within 1e-5 of the
 largest |x|; the kernels' plain twins agree with the Pallas kernels in
 interpret mode (rows [:n], the tolerance of tests/test_blocked.py), the
-blocked twin on a sweep whose ring wraps where the program allows one;
+blocked twin on a sweep whose ring wraps where the program allows one; the
+slot file's twin bit for bit the resident twin, on a plan that keeps what
+the kernel relies on;
 pack/decode round trips give the reference's words; random lower
 triangles verify clean and get the reference's diagnostics.  Examples are
 derandomized, so every run draws the same programs.
@@ -42,7 +44,7 @@ from repro_torch.kernels.sptrsv import kernel, ops
 
 from test_torch_analysis import _same_diagnostics
 from test_torch_compiler import assert_same_program
-from test_torch_sptrsv_kernel import _staged, _t
+from test_torch_sptrsv_kernel import _staged, _t, check_slot_plan
 from torch_strategies import accel_config, packed_fields, random_triangular, row_sweep
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -133,6 +135,28 @@ def test_compacted_stream_matches_the_blocked_twin(mat, cfg, planes, cpb, bseed)
               num_slots=ops._psum_slots(prog))
     got = kernel.sptrsv_cuda_blocked(*_t(ci, cv, b), program_lanes=64, **kw)
     want = kernel.sptrsv_blocked_plain(*_t(*staged, b), **kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@_derandomized(25)
+@given(random_triangular(), accel_config(), st.sampled_from([1, 2]),
+       st.sampled_from([1, 7, 128]), st.integers(0, 1000))
+def test_slotted_twin_matches_the_resident_twin(mat, cfg, planes, cpb, bseed):
+    """Random programs staged at any block length, x in a slot file
+    (`ops.plan_slots`, the lead of the program's lanes): the plan keeps
+    what the kernel relies on, and the slot file's twin, on the stream
+    rewritten to slots, answers bit for bit as `sptrsv_plain` on the row
+    stream."""
+    prog = compile_program(mat, cfg, planes=planes)
+    instr, values = ops._stage_instructions(prog, cpb)
+    plan = ops.plan_slots(prog, kernel.stream_lead_chunks(prog.num_cus), instr.shape[0])
+    check_slot_plan(prog, plan)
+    b = np.zeros((prog.n + 1, 3), np.float32)
+    b[:prog.n] = np.random.default_rng(bseed).standard_normal((prog.n, 3))
+    slots = ops._psum_slots(prog)
+    want = kernel.sptrsv_plain(*_t(instr, values, b), num_slots=slots)
+    got = kernel.sptrsv_slotted_plain(*_t(plan.words(instr), values, b), num_slots=slots,
+                                      slot_file=plan.file())
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 

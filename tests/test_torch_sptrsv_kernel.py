@@ -7,6 +7,8 @@ kernels themselves are held against the plain versions on the card in
 tests/test_torch_cuda.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +24,12 @@ from repro.kernels.sptrsv import ops as ref_ops
 from repro.kernels.sptrsv.kernel import sptrsv_pallas, sptrsv_pallas_blocked
 from repro_torch.core import api
 from repro_torch.core.errors import PlacementInfeasibleError
-from repro_torch.core.program import AccelConfig, program_from_arrays
+from repro_torch.core.program import (
+    AccelConfig,
+    decode_instructions,
+    pack_instructions,
+    program_from_arrays,
+)
 from repro_torch.kernels.sptrsv import kernel, ops
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -516,3 +523,235 @@ def test_check_kernel_limits_of_a_compacted_stream(args, refused):
     # psum file [slots][lanes], fb [lanes], a zero word (16-byte padded), ring
     assert kernel.smem_bytes_per_column(32, 2, 12, 100, lanes=64) == \
         4 * (((12 * 64 + 64 + 1 + 3) // 4) * 4 + 40 * 3 * 32 + 100)
+
+
+# ------------------------------------------------------------- slot file
+def _dag_small():
+    """The small copy of the benchmark's DAG cell (`perfbench/tests/data/
+    dag_circ85k.json`), compiled as the benchmark compiles it."""
+    import json
+    from pathlib import Path
+
+    from perfbench.builders import dag_circuit
+
+    path = Path(__file__).resolve().parent.parent / "perfbench/tests/data/dag_circ85k.json"
+    return dag_circuit.build(json.loads(path.read_text()), 7).compile()
+
+
+def _slot_case(prog, nb=3, seed=0):
+    """The staged stream, its slot plan, b and `sptrsv_plain`'s x."""
+    instr, values = ops._stage_instructions(prog, 128)
+    plan = ops.plan_slots(prog, kernel.stream_lead_chunks(prog.num_cus), instr.shape[0])
+    b = np.zeros((prog.n + 1, nb), np.float32)
+    b[:prog.n] = np.random.default_rng(seed).standard_normal((prog.n, nb))
+    want = kernel.sptrsv_plain(*_t(instr, values, b), num_slots=ops._psum_slots(prog))
+    return instr, values, plan, b, want
+
+
+def _slotted(prog, instr, values, plan, b):
+    return kernel.sptrsv_slotted_plain(*_t(plan.words(instr), values, b),
+                                       num_slots=ops._psum_slots(prog), slot_file=plan.file())
+
+
+def _liveness(prog, chunks):
+    """Each row's FINAL chunk and last-read chunk, from the words alone."""
+    op, src, _, _ = decode_instructions(prog.instr, prog.planes)
+    cyc = np.broadcast_to(np.arange(prog.cycles)[:, None], op.shape)
+    final = np.empty(prog.n, np.int64)
+    final[src[op == 2]] = cyc[op == 2] // kernel.STREAM_CHUNK
+    last = final.copy()
+    np.maximum.at(last, src[op == 1], cyc[op == 1] // kernel.STREAM_CHUNK)
+    return final, last
+
+
+def check_slot_plan(prog, plan):
+    """What the kernel relies on: b copied in at least ``lead`` chunks
+    before the FINAL, x written out at a chunk top after it, a slot held
+    through the last read and until its flush, two rows of one slot never
+    overlapping, each list within its 32 x SLOT_LIST entries; and S no more
+    than the rows live at once (FINAL to last read, by chunk) plus the
+    FINALs of ``lead`` chunks."""
+    final, last = _liveness(prog, plan.chunks)
+    np.testing.assert_array_equal(plan.final, final)
+    assert ((plan.refill == -1) | ((plan.refill >= 0) & (plan.refill <= final - plan.lead))).all()
+    tail = plan.flush == plan.chunks  # written out after the last chunk
+    assert (tail | (plan.flush >= final + kernel.SLOT_FLUSH_LAG)).all()
+    assert (plan.flush <= plan.chunks).all()
+    assert (plan.release >= last).all() and (plan.release >= plan.flush - 1).all()
+    cap = 32 * kernel.SLOT_LIST
+    for when in (plan.refill[plan.refill >= 0], plan.flush[plan.flush < plan.chunks]):
+        assert np.bincount(when).max(initial=0) <= cap
+    assert 0 <= plan.slot.min() and plan.slot.max() < plan.size
+    for s in np.unique(plan.slot):
+        rows = np.flatnonzero(plan.slot == s)
+        rows = rows[np.argsort(plan.refill[rows])]
+        assert (plan.refill[rows[1:]] > plan.release[rows[:-1]]).all()
+    live = np.zeros(plan.chunks + kernel.SLOT_FLUSH_LAG, np.int64)
+    np.add.at(live, final, 1)
+    np.add.at(live, np.maximum(last, final + kernel.SLOT_FLUSH_LAG - 1) + 1, -1)
+    finals = np.bincount(final, minlength=plan.chunks + plan.lead)
+    ahead = np.convolve(finals, np.ones(plan.lead, np.int64))[plan.lead:]
+    assert plan.size <= np.cumsum(live).max() + ahead.max()
+
+
+def test_slotted_twin_matches_plain_on_the_dag_cell():
+    """The benchmark DAG's small copy: its slot plan keeps what the kernel
+    relies on, and the slot file's twin (refills and flushes at chunk
+    granularity, a slot NaN from the refill's issue until its copy lands)
+    answers bit for bit as `sptrsv_plain` on the row stream."""
+    prog = _dag_small()
+    instr, values, plan, b, want = _slot_case(prog)
+    check_slot_plan(prog, plan)
+    assert plan.size < prog.n
+    got = _slotted(prog, instr, values, plan, b)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shift", [-1, 1])
+def test_slotted_twin_fails_on_a_plan_shifted_by_a_chunk(shift):
+    """Refills one chunk early take a slot while its last occupant is still
+    read (every free slot goes to the row that comes next, so reuse is
+    tight); one chunk late, the FINAL reads its slot before the copy lands.
+    Either way the twin reads NaN and the answer is not the solve's."""
+    prog = _dag_small()
+    instr, values, plan, b, want = _slot_case(prog)
+    moved = plan.refill >= (1 if shift < 0 else 0)
+    bad = dataclasses.replace(plan, refill=np.where(moved, plan.refill + shift, plan.refill))
+    got = _slotted(prog, instr, values, bad, b)
+    assert torch.isnan(got[:prog.n]).any()
+
+
+@pytest.mark.parametrize("name", ["ckt_rajat04", "hub_small", "band_cz"])
+def test_slotted_twin_matches_plain_on_the_suite(name):
+    prog = port_program(ref_api.compile(generate(name)))
+    instr, values, plan, b, want = _slot_case(prog, nb=2, seed=3)
+    check_slot_plan(prog, plan)
+    torch.testing.assert_close(_slotted(prog, instr, values, plan, b), want, rtol=0, atol=0)
+
+
+def test_a_row_without_one_final_gets_no_slot_plan():
+    """A stream in which some row has no FINAL, or two, or an EDGE that
+    reads a row before its FINAL, gets no plan (the closure then keeps x in
+    device memory)."""
+    prog = _dag_small()
+    op, src, ct, sl = decode_instructions(prog.instr, prog.planes)
+    t, lane = np.argwhere(op == 2)[0]
+    for new_op in (0, 1):  # the FINAL dropped, or turned into an EDGE read
+        o = op.copy()
+        o[t, lane] = new_op
+        words = pack_instructions(o, src, ct, sl, planes=prog.planes)
+        assert ops.plan_slots(dataclasses.replace(prog, instr=words), 4) is None
+    o, s = op.copy(), src.copy()
+    t2, lane2 = np.argwhere(op == 2)[-1]
+    o[t2, lane2], s[t2, lane2] = 2, src[t, lane]  # a second FINAL of one row
+    assert ops.plan_slots(dataclasses.replace(
+        prog, instr=pack_instructions(o, s, ct, sl, planes=prog.planes)), 4) is None
+
+
+def test_placement_order_shared_blocked_slots_device():
+    """``auto`` keeps x in shared memory while it fits, then a row window
+    where one fits, then a slot file where its slots fit, then device
+    memory; each by what fits the limit alone.  The slotted closure answers
+    bit for bit as the shared one, on the CPU through the twin."""
+    ckt = api.compile(api.matrix("ckt_add32"))
+    p, planes, slots = ckt.num_cus, ckt.planes, ops._psum_slots(ckt)
+    resident = ops.state_bytes(ckt, placement="resident")["total"]
+    size = ops.plan_slots(ckt, kernel.stream_lead_chunks(p),
+                          ops._stage_instructions(ckt, 128)[0].shape[0]).size
+    slotted = kernel.smem_bytes_per_column(p, planes, slots,
+                                           kernel.slot_file_words(p, size))
+    assert slotted < resident
+    b = np.random.default_rng(1).standard_normal((ckt.n, 4)).astype(np.float32)
+    answers = []
+    for limit, want in ((None, (True, 0)), (slotted, (False, size)),
+                        (slotted - 1, (False, 0))):
+        core = ops.build_solver_cols(ckt, 4, smem_limit_bytes=limit, device="cpu")
+        assert (core.placement, core.x_in_smem, core.x_slots) == ("resident",) + want
+        assert (core.slot_file is None) == (want[1] == 0)
+        answers.append(core(torch.from_numpy(b)))
+    for got in answers[1:]:
+        torch.testing.assert_close(got, answers[0], rtol=0, atol=0)
+    # a program with a row window goes blocked before it takes a slot file
+    band = api.compile(api.matrix("band_wide4k"))
+    limit = ops.state_bytes(band, placement="resident")["total"] - 1
+    core = ops.build_solver_cols(band, 4, smem_limit_bytes=limit, device="cpu")
+    assert (core.placement, core.x_slots) == ("blocked", 0)
+    core = ops.build_solver_cols(band, 4, placement="resident", smem_limit_bytes=limit,
+                                 device="cpu")
+    assert (core.placement, core.x_in_smem) == ("resident", False) and core.x_slots > 0
+
+
+def test_staging_refuses_slot_entries_past_the_file():
+    """The staging check of a slot file: the plan's lists pass; an entry
+    naming a slot past the file, or a row past x, is refused."""
+    prog = _dag_small()
+    _, _, plan, _, _ = _slot_case(prog)
+    sf = plan.file()
+    ops._check_slot_lists(sf, prog.n + 1)
+    lists = sf.lists.clone()
+    e = torch.nonzero(lists[..., 1] >= 0)[0].tolist()
+    for k, bad in ((0, plan.size), (1, prog.n + 1)):
+        wrong = lists.clone()
+        wrong[tuple(e) + (k,)] = bad
+        with pytest.raises(ValueError, match="slot file entry"):
+            ops._check_slot_lists(dataclasses.replace(sf, lists=wrong), prog.n + 1)
+    with pytest.raises(ValueError, match="slot file entry"):
+        ops._check_slot_lists(dataclasses.replace(sf, size=int(plan.slot.max())), prog.n + 1)
+
+
+def test_slot_file_layout_is_the_kernels():
+    """The lists as the kernel reads them: [chunk][refill, flush][thread]
+    [SLOT_LIST] (slot, row) pairs, entry e of a list at thread e % 32,
+    unused entries row -1; the prologue and tail pairs; the shared words
+    of a warp (`slot_file_words`); the wrapper's CPU path runs the twin
+    and counts no launch."""
+    prog = _dag_small()
+    instr, values, plan, b, want = _slot_case(prog)
+    sf = plan.file()
+    assert tuple(sf.lists.shape) == (plan.chunks, 2, 32, kernel.SLOT_LIST, 2)
+    assert sf.lists.dtype == sf.prologue.dtype == sf.tail.dtype == torch.int32
+    lists = sf.lists.numpy()
+    for k, when in enumerate((plan.refill, plan.flush)):
+        for c in range(plan.chunks):
+            flat = lists[c, k].transpose(1, 0, 2).reshape(-1, 2)  # entry order
+            used = flat[flat[:, 1] >= 0]
+            rows = np.flatnonzero(when == c)
+            assert sorted(used[:, 1]) == sorted(rows)
+            np.testing.assert_array_equal(used[:, 0], plan.slot[used[:, 1]])
+            assert (flat[len(used):, 1] == -1).all()
+    pro, tail = sf.prologue.numpy(), sf.tail.numpy()
+    assert sorted(pro[:, 1]) == sorted(np.flatnonzero(plan.refill < 0))
+    assert sorted(tail[:, 1]) == sorted(np.flatnonzero(plan.flush == plan.chunks))
+    lead = kernel.stream_lead_chunks(prog.num_cus)
+    # the list ring holds the chunks from this one to LEAD ahead
+    assert kernel.slot_file_words(prog.num_cus, 5) == \
+        (lead + 1) * 2 * 32 * kernel.SLOT_LIST * 2 + 8
+    # what the card's launch checks of the tensors it passes
+    tb = torch.from_numpy(b)
+    kernel._check_slot_file(sf, instr.shape[0], tb)
+    for bad in (dataclasses.replace(sf, lists=sf.lists[1:].contiguous()),
+                dataclasses.replace(sf, tail=sf.tail.long()),
+                dataclasses.replace(sf, size=0)):
+        with pytest.raises(ValueError, match="slot"):
+            kernel._check_slot_file(bad, instr.shape[0], tb)
+    before = (kernel.sptrsv_cuda.launches, kernel.sptrsv_cuda.x_slotted)
+    got = kernel.sptrsv_cuda(*_t(plan.words(instr), values, b),
+                             num_slots=ops._psum_slots(prog), x_in_smem=False,
+                             slot_file=sf)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (kernel.sptrsv_cuda.launches, kernel.sptrsv_cuda.x_slotted) == before
+
+
+def test_slot_file_with_x_in_shared_memory_is_refused():
+    """A slot file and ``x_in_smem=True`` name two places for x: the
+    wrapper refuses the pair, on the CPU as on the card, and counts
+    nothing."""
+    prog = _dag_small()
+    instr, values, plan, b, _ = _slot_case(prog)
+    before = (kernel.sptrsv_cuda.launches, kernel.sptrsv_cuda.x_slotted,
+              kernel.sptrsv_cuda.x_in_device)
+    with pytest.raises(ValueError, match="x_in_smem=False"):
+        kernel.sptrsv_cuda(*_t(plan.words(instr), values, b),
+                           num_slots=ops._psum_slots(prog), slot_file=plan.file())
+    assert (kernel.sptrsv_cuda.launches, kernel.sptrsv_cuda.x_slotted,
+            kernel.sptrsv_cuda.x_in_device) == before
